@@ -1,0 +1,29 @@
+"""visuelle2_tpu_torch — the PyTorch / CUDA (NVIDIA H100) port of visuelle2_tpu.
+
+The JAX package ``visuelle2_tpu`` stays the reference; this package mirrors
+its layout (``ops/``, ``models/``, ``data/``, ``eval/``) and its module and
+parameter names, so each counterpart is found by name and the weight bridge
+(``convert.py``) stays mechanical.  It imports torch and numpy only — never
+jax, flax or anything of ``visuelle2_tpu``.
+
+Every TPU kernel on a ported path is a kernel written by hand for Hopper
+(``csrc/``, built at first use by ``ops/cuda/_build.py``).  On a CUDA tensor
+a kernel wrapper launches its kernel or raises; the plain PyTorch version
+beside it runs only for CPU tensors.
+
+Ported so far: the ``gated_v4`` demand forecaster's eval forward and the
+HTTP server that serves it (``models.build``, ``eval.export.make_forecaster``,
+``eval.server.make_server``).  Entry points put the model on ``cuda`` unless
+the caller passes ``device="cpu"`` (``_device.resolve_device``).
+
+Numeric traps the tests guard (each is restated where it lives):
+
+* flax ``LayerNorm`` eps is 1e-6, not torch's 1e-5 — every LayerNorm sets it;
+* the gate kernel of ``TextGuidedFusionNetwork`` is laid over ``[ctx, x]``;
+* BatchNorm is folded in the working dtype as ``models/resnet.py`` does;
+* ``normalize_images`` computes in the working dtype, so bf16 rounds alike;
+* the bf16 pooled image mean is cast to f32 before the fusion;
+* attention masks are additive 0 / −inf; the trend encoder has 4 heads;
+* cuDNN runs f32 convolutions in TF32 by default: comparisons in f32 set
+  ``torch.backends.cudnn.allow_tf32 = False``.
+"""

@@ -1,0 +1,136 @@
+"""Modality encoders of the gated_v4 path, counterpart of
+``visuelle2_tpu/models/encoders.py``.
+
+* ``SalesEncoder``       — GRU over the sales history
+* ``AttributeEncoder``   — 4 embeddings, combine ∈ {sum, stack, concat_proj}
+* ``DummyEmbedder``      — 4 scalar linears -> concat -> fuse
+* ``ImagePooledEncoder`` — uint8 NHWC -> normalize -> ResNet -> 1x1 conv ->
+  global mean [-> final proj]; the pooled mean is computed in the working
+  dtype and cast to f32, as in the JAX package
+* ``GTrendEmbedder``     — linear -> sinusoidal positions -> post-norm
+  encoder under the gcd block mask (non-gated form)
+
+Eval mode only: dropout is the identity there, so the port has none yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from visuelle2_tpu_torch.data.images import normalize_images
+from visuelle2_tpu_torch.models.resnet import STAGE_BLOCKS, ResNetBackbone
+from visuelle2_tpu_torch.ops.gru import GRU
+from visuelle2_tpu_torch.ops.masks import gcd_block_mask
+from visuelle2_tpu_torch.ops.positional import PositionalEncoding
+from visuelle2_tpu_torch.ops.transformer import TransformerEncoder
+
+
+class SalesEncoder(nn.Module):
+    """GRU over sales history: [B, T, I] -> outputs [B, T, H]."""
+
+    def __init__(self, embedding_dim: int, input_dim: int = 1):
+        super().__init__()
+        self.gru = GRU(input_dim, embedding_dim)
+
+    def forward(self, x):
+        return self.gru(x)[0]
+
+
+class AttributeEncoder(nn.Module):
+    """Category/color/fabric/store embeddings.
+
+    combine="sum" -> [B, E]; "stack" -> [B, 4, E]; "concat_proj" -> [B, H].
+    """
+
+    def __init__(self, num_cat: int, num_col: int, num_fab: int, num_store: int,
+                 embedding_dim: int, combine: str = "sum",
+                 hidden_dim: Optional[int] = None):
+        super().__init__()
+        if combine not in ("sum", "stack", "concat_proj"):
+            raise ValueError(combine)
+        E = embedding_dim
+        self.combine = combine
+        self.cat = nn.Embedding(num_cat, E)
+        self.col = nn.Embedding(num_col, E)
+        self.fab = nn.Embedding(num_fab, E)
+        self.store = nn.Embedding(num_store, E)
+        if combine == "concat_proj":
+            self.proj = nn.Linear(4 * E, hidden_dim or E)
+
+    def forward(self, cat, col, fab, store):
+        embs = [self.cat(cat), self.col(col), self.fab(fab), self.store(store)]
+        if self.combine == "sum":
+            return embs[0] + embs[1] + embs[2] + embs[3]
+        if self.combine == "stack":
+            return torch.stack(embs, dim=1)
+        return self.proj(torch.cat(embs, dim=-1))
+
+
+class DummyEmbedder(nn.Module):
+    """GTM temporal encoder: 4 linears -> concat -> fuse."""
+
+    def __init__(self, embedding_dim: int):
+        super().__init__()
+        E = embedding_dim
+        self.day = nn.Linear(1, E)
+        self.week = nn.Linear(1, E)
+        self.month = nn.Linear(1, E)
+        self.year = nn.Linear(1, E)
+        self.fusion = nn.Linear(4 * E, E)
+
+    def forward(self, temporal):
+        parts = [layer(temporal[:, i: i + 1])
+                 for i, layer in enumerate((self.day, self.week, self.month, self.year))]
+        return self.fusion(torch.cat(parts, dim=-1))
+
+
+class ImagePooledEncoder(nn.Module):
+    """ResNet -> 1x1 conv projection -> global average pool [-> final proj].
+
+    Takes uint8 NHWC images; ``img_idx`` (optional [N] int) expands the
+    pooled features of unique images to rows by gather.
+    """
+
+    def __init__(self, embedding_dim: int, final_dim: Optional[int] = None,
+                 arch: str = "resnet101", dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.backbone = ResNetBackbone(STAGE_BLOCKS[arch], dtype=dtype)
+        self.projection = nn.Conv2d(2048, embedding_dim, 1, bias=True, dtype=dtype)
+        self.final_proj = (None if final_dim is None
+                           else nn.Linear(embedding_dim, final_dim))
+
+    def forward(self, images_u8, img_idx=None):
+        x = normalize_images(images_u8, dtype=self.dtype).permute(0, 3, 1, 2)
+        proj = self.projection(self.backbone(x))
+        pooled = proj.mean(dim=(2, 3)).float()
+        if self.final_proj is not None:
+            pooled = self.final_proj(pooled)
+        if img_idx is not None:
+            pooled = pooled.index_select(0, img_idx)
+        return pooled
+
+
+class GTrendEmbedder(nn.Module):
+    """Trend transformer encoder with the gcd block mask (non-gated):
+    gtrends [B, num_trends, trend_len] -> memory [B, trend_len, E]."""
+
+    def __init__(self, forecast_horizon: int, embedding_dim: int, num_trends: int = 3,
+                 trend_len: int = 52, use_mask: bool = True, num_layers: int = 2,
+                 nhead: int = 4, gated: bool = False):
+        super().__init__()
+        self.forecast_horizon = forecast_horizon
+        self.use_mask = use_mask
+        self.input_linear = nn.Linear(num_trends, embedding_dim)
+        self.pos = PositionalEncoding(embedding_dim, max_len=trend_len)
+        self.encoder = TransformerEncoder(embedding_dim, nhead, num_layers,
+                                          dim_feedforward=2048, gated=gated)
+
+    def forward(self, gtrends):
+        x = self.pos(self.input_linear(gtrends.transpose(1, 2)))
+        mask = (gcd_block_mask(x.shape[1], self.forecast_horizon, device=x.device)
+                if self.use_mask else None)
+        return self.encoder(x, mask=mask)

@@ -1,0 +1,97 @@
+"""Model registry, counterpart of ``visuelle2_tpu/models/registry.py``.
+
+``build(name, device=..., generator=..., **overrides)`` returns an eval-mode
+``nn.Module`` on ``device`` (``cuda`` unless the caller passes one; see
+``_device.py``), its weights drawn from ``generator`` with the JAX package's
+initializers: lecun-normal Dense/Conv kernels, zero biases, unit norms,
+U(±1/√H) GRU weights.  Only ``gated_v4`` is ported; every other registry name
+raises ``NotImplementedError`` naming its ROADMAP slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from visuelle2_tpu_torch._device import resolve_device
+from visuelle2_tpu_torch.models.fusion import _GateParams
+from visuelle2_tpu_torch.models.resnet import BatchNorm
+from visuelle2_tpu_torch.models.seq2seq import Seq2SeqForecaster
+from visuelle2_tpu_torch.ops.gru import GRU
+
+# emb 32 / hidden 64 / heads 4 / layers 1 for the GTM family.
+_GTM_DEFAULTS = dict(embedding_dim=32, hidden_dim=64, num_heads=4, num_layers=1)
+
+_LATER = {
+    "cross_attn_rnn_21": "Queue 1 item 9 (CrossAttnRNN slice)",
+    "cross_attn_rnn_210": "Queue 1 item 9 (CrossAttnRNN slice)",
+    "cross_attn_rnn_demand": "Queue 1 item 9 (CrossAttnRNN slice)",
+    "gtm": "Queue 1 item 6 (seq2seq-family slice)",
+    "m4ft": "Queue 1 item 6 (seq2seq-family slice)",
+    "gated_v1": "Queue 1 item 6 (seq2seq-family slice)",
+    "gated_v2": "Queue 1 item 6 (seq2seq-family slice)",
+    "gated_v3": "Queue 1 item 6 (seq2seq-family slice)",
+    "gtm_v1": "Queue 1 item 10 (remaining models)",
+    "oracle": "Queue 1 item 10 (remaining models)",
+}
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
+    # flax lecun_normal: truncated normal (±2σ) of variance 1/fan_in; the
+    # stddev correction 0.8796 undoes the truncation's shrinkage.
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        tmp = torch.empty(w.shape, dtype=torch.float32)
+        nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        w.copy_(tmp * std)
+
+
+def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every parameter of ``model`` from ``generator`` (on the CPU)."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Linear):
+                _lecun_normal_(mod.weight, mod.in_features, generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.Conv2d):
+                fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+                _lecun_normal_(mod.weight, fan_in, generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.Embedding):
+                # flax Embed: variance_scaling(1, fan_in, normal, out_axis=0)
+                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.num_embeddings),
+                                   generator=generator)
+            elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, GRU):
+                bound = 1.0 / math.sqrt(mod.hidden_dim)
+                for p in (mod.w_i, mod.w_h, mod.b_i, mod.b_h):
+                    p.uniform_(-bound, bound, generator=generator)
+            elif isinstance(mod, _GateParams):
+                _lecun_normal_(mod.kernel, mod.kernel.shape[0], generator)
+                mod.bias.fill_(mod.bias_init)
+
+
+def build(name: str, *, device=None, generator: Optional[torch.Generator] = None,
+          **overrides) -> nn.Module:
+    """Build a registry model in eval mode on ``device``.
+
+    ``generator`` (default: seeded with 0) draws the initial weights;
+    ``convert.load_jax_variables`` replaces them with a JAX model's.
+    """
+    if name != "gated_v4":
+        if name in _LATER:
+            raise NotImplementedError(f"model {name!r} is ported in ROADMAP {_LATER[name]}")
+        raise KeyError(f"unknown model {name!r}; known: {sorted([*_LATER, 'gated_v4'])}")
+    dev = resolve_device(device)
+    model = Seq2SeqForecaster(variant=name, **{**_GTM_DEFAULTS, **overrides})
+    init_parameters(model, generator or torch.Generator().manual_seed(0))
+    if model.image_encoder is not None:
+        model.image_encoder.to(memory_format=torch.channels_last)
+    return model.to(dev).eval()
