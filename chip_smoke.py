@@ -3,29 +3,42 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``visuelle2_tpu_torch/csrc`` (nvcc,
-sm_90a, into ``build/visuelle2_tpu_torch/``), then, each phase printing one
-JSON line and any failure exiting non-zero:
+Builds the port's CUDA kernels from ``visuelle2_tpu_torch/csrc`` (one nvcc
+per source, all started together, sm_90a, into ``build/visuelle2_tpu_torch/``),
+then, each phase printing one JSON line and any failure exiting non-zero:
 
-1. device  — the card, its power limit, the kernel library's build time;
-2. kernel  — ``fused_gated_residual`` against its plain PyTorch version
+1. device       — the card, its power limit, the kernel library's build time;
+2. kernel       — ``fused_gated_residual`` against its plain PyTorch version
    (TF32 off, atol 1e-5) at the main-path and ragged shapes;
-3. forward — the full-width gated_v4 demand forecaster (ResNet-101 at 299²,
-   bf16 backbone, E=32, H=64, B=128, random weights from a seeded
+3. mha_kernel   — ``fused_gated_mha`` against its plain version (TF32 off,
+   atol 2e-5, rtol 1e-5), both variants, gcd-masked and unmasked, at the
+   gated_v2 shapes (B=128, D=64, 4 heads; 52/52 head, 1/52 and 12/52 pure)
+   and at a ragged one (B=37, D=48);
+4. forward      — the full-width gated_v4 demand forecaster (ResNet-101 at
+   299², bf16 backbone, E=32, H=64, B=128, random weights from a seeded
    generator) through ``make_forecaster``: finite [128, 12] forecasts, two
-   kernel launches per forward, the kernel held to its plain version on the
-   fusion inputs of the real forward, and the port on the card held to the
-   port on the CPU in f32 at a small width;
-4. serve   — the port's HTTP server answers concurrent requests, coalesces
-   them, and each answer matches a direct forward of the same rows;
-5. times   — forward time per batch by CUDA events over distinct batches
-   (the median of five windows, each window reported),
-   the forward's device busy time, its split by operator and its top
-   kernels from ``torch.profiler``, its FLOPs and the convolutions' rate,
-   the serving callable's latency, peak device memory;
-   the kernel's and the plain version's device time per call (profiler)
-   and time per call as seen from Python (CUDA events), and the kernel's
-   bound from its shapes.
+   ``fused_gated_residual`` launches per forward, the kernel held to its
+   plain version on the fusion inputs of the real forward, and the port on
+   the card held to the port on the CPU in f32 at a small width;
+5. serve        — the port's HTTP server answers concurrent requests,
+   coalesces them, and each answer matches a direct forward of the same rows;
+6. times        — gated_v4's forward time per batch by CUDA events over
+   distinct batches (the median of five windows, each window reported), its
+   device busy time, its split by operator and its top kernels from
+   ``torch.profiler``, its FLOPs and the convolutions' rate, the serving
+   callable's latency, peak device memory;
+7. kernel_times — ``fused_gated_residual``'s and its plain version's device
+   time per call (profiler), time per call as seen from Python (CUDA
+   events), and the kernel's bound from its shapes;
+8. forward_v2   — the full-width gated_v2 forecaster, as in 4: exactly three
+   ``fused_gated_mha`` launches per forward (two trend-encoder layers, one
+   decoder cross-attention), the kernel held to its plain version on the
+   attention inputs of the real forward, and a small gated_v2 on the card
+   held to the same model on the CPU in f32;
+9. times_v2     — gated_v2's forward times as in 6;
+10. mha_kernel_times — per variant at the main-path shape, the kernel's and
+   the plain version's device time per launch and time per call, and the
+   bound.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line and, last, the ``ok``
 line.  Without a CUDA device it exits non-zero before printing any result.
@@ -50,14 +63,16 @@ from torch.utils.flop_counter import FlopCounterMode
 
 B = 128          # export batch of the main path
 IMAGE = 299
-KERNEL_ATOL = 1e-5   # kernel vs plain: both f32, sums in another order
+KERNEL_ATOL = 1e-5   # gated residual vs plain: both f32, sums in another order
+# Gated MHA vs plain: the tolerance tests/test_pallas_kernels.py holds the
+# Pallas kernel to (softmax and five chained products, sums in another order).
+MHA_ATOL, MHA_RTOL = 2e-5, 1e-5
 F32_ATOL = 1e-4      # port on the card vs on the CPU in f32, as the CPU tests
 # Served rows vs a direct forward of just those rows: the bf16 backbone runs
 # at another batch size there, where cuDNN may pick other algorithms that
 # round differently; bf16 keeps about 3 significant digits.
 SERVE_RTOL = 5e-2
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM
-F32_FLOP_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
+N_FWD = 3                   # forwards of each main-path run
 
 
 def _require(cond, msg):
@@ -124,6 +139,109 @@ def _gate_inputs(model, img, text, dummy):
     return calls
 
 
+def _gated_mha_modules(model):
+    """gated_v2's three gated-MHA modules, in the order a forward calls them."""
+    enc = model.gtrend_encoder.encoder
+    return [enc.layer0.self_attn, enc.layer1.self_attn, model.decoder.layer0.cross_attn]
+
+
+def _kernel_vs_plain_times(kernel, plain, args, kwargs, n_calls=500):
+    """Device ms per call (profiler) and ms per call from Python (CUDA
+    events), kernel and plain, on the same inputs."""
+    for f in (kernel, plain):
+        f(*args, **kwargs)
+    call_ms = {name: _cuda_ms(lambda: f(*args, **kwargs), n_calls)
+               for name, f in (("kernel", kernel), ("plain", plain))}
+    device_ms = {}
+    for name, f in (("kernel", kernel), ("plain", plain)):
+        with _profile() as prof:
+            for _ in range(n_calls):
+                f(*args, **kwargs)
+            torch.cuda.synchronize()
+        device_ms[name] = _device_us(prof) / n_calls / 1e3
+    _require(device_ms["kernel"] > 0 and device_ms["plain"] > 0,
+             f"profiler saw no device time: {device_ms}")
+    return device_ms, call_ms
+
+
+def _forward_times(model, fn, host_batches, dev, seed):
+    """Forward time at B=128 (median of five CUDA-event windows over eight
+    distinct batches), device busy time and idle share, the split by
+    operator and the top kernels, FLOPs, serving-callable latency and peak
+    device memory."""
+    fn_s = []
+    for hb in host_batches:  # warm: the callable already ran
+        t0 = time.perf_counter()
+        fn(hb)
+        fn_s.append(time.perf_counter() - t0)
+    dev_batches = [_to_device(_synthetic_batch(B, IMAGE, seed=seed + i), dev)
+                   for i in range(8)]
+    with torch.inference_mode():
+        for b in dev_batches[:2]:
+            model(b)
+        cycle = itertools.cycle(dev_batches)
+        # Five windows of eight distinct batches each: their spread says how
+        # far one run's forward time can be trusted.
+        fwd_windows = [_cuda_ms(lambda: model(next(cycle)), len(dev_batches))
+                       for _ in range(5)]
+        fwd_ms = float(np.median(fwd_windows))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model(dev_batches[0])
+        torch.cuda.synchronize()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        with _profile() as prof:
+            for b in dev_batches[:2]:
+                model(b)
+            torch.cuda.synchronize()
+        fwd_device_ms = _device_us(prof) / 2e3
+        with FlopCounterMode(display=False) as flops:
+            model(dev_batches[1])
+    by_aten = {str(op): n for op, n in flops.get_flop_counts()["Global"].items()}
+    conv_flops = sum(n for op, n in by_aten.items() if "convolution" in op)
+    by_op = sorted(((e.key, e.self_device_time_total / 2e3)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+                   key=lambda kv: -kv[1])[:10]
+    by_kernel = sorted(([e.key[:100], e.self_device_time_total / 2e3, e.count // 2]
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                       key=lambda kv: -kv[1])[:8]
+    return {"batch": B, "forward_ms": fwd_ms, "forward_ms_windows": fwd_windows,
+            "forecasts_per_s": B / (fwd_ms / 1e3),
+            "forward_device_busy_ms": fwd_device_ms,
+            "device_idle_share": max(0.0, 1.0 - fwd_device_ms / fwd_ms),
+            "forward_device_ms_by_op": dict(by_op),
+            "forward_top_kernels_ms_launches": by_kernel,
+            "forward_flops": flops.get_total_flops(), "conv_flops": conv_flops,
+            "conv_tflops_per_s": conv_flops / 1e9 / dict(by_op)["aten::cudnn_convolution"],
+            "serving_fn_ms_incl_copies": sorted(1e3 * t for t in fn_s),
+            "max_memory_allocated_bytes": peak_bytes}
+
+
+def _card_vs_cpu(name, dev):
+    """A small f32 model (tiny backbone) on the card vs the same weights on
+    the CPU: max abs difference of the forecasts."""
+    from visuelle2_tpu_torch.models import VocabSizes, build
+
+    small = build(name, device=dev, generator=torch.Generator().manual_seed(2),
+                  image_arch="tiny", vocab=VocabSizes(5, 6, 5, 126))
+    small_cpu = build(name, device="cpu", image_arch="tiny", vocab=VocabSizes(5, 6, 5, 126))
+    small_cpu.load_state_dict({k: v.cpu() for k, v in small.state_dict().items()})
+    sb = _synthetic_batch(8, 64, seed=3)
+    with torch.inference_mode():
+        on_card = small(_to_device(sb, dev))[0].cpu()
+        on_cpu = small_cpu(_to_device(sb, "cpu"))[0]
+    return (on_card - on_cpu).abs().max().item()
+
+
+def _mha_err(got, want):
+    """Max abs error, and whether every element is within atol + rtol·|want|."""
+    diff = (got - want).abs()
+    ok = bool((diff <= MHA_ATOL + MHA_RTOL * want.abs()).all().item())
+    return diff.max().item(), ok
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs on the GPU only")
@@ -131,11 +249,19 @@ def main():
     from visuelle2_tpu_torch.eval.export import make_forecaster
     from visuelle2_tpu_torch.eval.server import drain_and_close, make_server
     from visuelle2_tpu_torch.models import VocabSizes, build
-    from visuelle2_tpu_torch.ops.cuda import _build
+    from visuelle2_tpu_torch.ops.cuda import _build, roofline
     from visuelle2_tpu_torch.ops.cuda.gated_fusion import (
         fused_gated_residual as kernel,
         fused_gated_residual_plain as plain,
     )
+    from visuelle2_tpu_torch.ops.cuda.gated_mha import (
+        fused_gated_mha as mha,
+        fused_gated_mha_plain as mha_plain,
+    )
+    from visuelle2_tpu_torch.ops.masks import gcd_block_mask
+
+    def zero_counts():
+        kernel.launches = mha.launches = 0
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -154,7 +280,7 @@ def main():
            "kernel_build_s": time.perf_counter() - t0,
            "library": os.path.relpath(_build.library_path())})
 
-    # 2. kernel vs plain ---------------------------------------------------------
+    # 2. gated residual vs plain ---------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
     errs = {}
     for Bk, D, C in ((B, 32, 128), (37, 48, 96), (3, 64, 512)):
@@ -170,7 +296,35 @@ def main():
     _emit({"phase": "kernel", "max_abs_err": errs, "tol": KERNEL_ATOL})
     _require(max(errs.values()) <= KERNEL_ATOL, f"kernel disagrees with plain: {errs}")
 
-    # 3. full-width forward through the serving callable -------------------------
+    # 3. gated MHA vs plain --------------------------------------------------------
+    mha_errs, mha_bad = {}, []
+    for variant, (Bk, Lq, Lk, D), masked in (
+            ("head", (B, 52, 52, 64), True), ("head", (B, 52, 52, 64), False),
+            ("pure", (B, 1, 52, 64), False), ("pure", (B, 12, 52, 64), False),
+            ("pure", (B, 52, 52, 64), True),
+            ("head", (37, 52, 52, 48), True), ("pure", (37, 12, 52, 48), False),
+            ("pure", (37, 52, 52, 48), True)):
+        G = D // 4 if variant == "head" else D
+        query = torch.randn(Bk, Lq, D, device=dev, generator=gen)
+        kv = query if Lq == Lk else torch.randn(Bk, Lk, D, device=dev, generator=gen)
+        mask = gcd_block_mask(Lq, 12, device=dev) if masked else torch.zeros(Lq, Lk, device=dev)
+        weights = []
+        for n in (D, D, D, G, D):
+            weights += [torch.randn(n, n, device=dev, generator=gen) * n ** -0.5,
+                        torch.randn(n, device=dev, generator=gen) * 0.1]
+        args = (query, kv, kv, mask, *weights)
+        got = mha(*args, num_heads=4, variant=variant)
+        want = mha_plain(*args, num_heads=4, variant=variant)
+        torch.cuda.synchronize()
+        key = f"{variant}/{Bk}x{Lq}x{Lk}x{D}/{'gcd' if masked else 'unmasked'}"
+        mha_errs[key], ok = _mha_err(got, want)
+        if not ok:
+            mha_bad.append(key)
+    _emit({"phase": "mha_kernel", "max_abs_err": mha_errs, "atol": MHA_ATOL,
+           "rtol": MHA_RTOL})
+    _require(not mha_bad, f"gated MHA kernel disagrees with plain at {mha_bad}: {mha_errs}")
+
+    # 4. full-width gated_v4 forward through the serving callable ------------------
     model = build("gated_v4", device=dev, generator=torch.Generator().manual_seed(0),
                   vocab=VocabSizes(5, 6, 5, 126), output_len=12,
                   image_arch="resnet101", image_dtype=torch.bfloat16)
@@ -179,17 +333,17 @@ def main():
     captured = []
     hook = model.fusion.register_forward_pre_hook(
         lambda mod, args: captured.append(args) if not captured else None)
-    n_fwd = 3
-    host_batches = [_synthetic_batch(B, IMAGE, seed=10 + i) for i in range(n_fwd)]
-    kernel.launches = 0
+    host_batches = [_synthetic_batch(B, IMAGE, seed=10 + i) for i in range(N_FWD)]
+    zero_counts()
     outs = [fn(hb) for hb in host_batches]
-    launches = kernel.launches
+    launches, v4_mha_launches = kernel.launches, mha.launches
     hook.remove()
     for out in outs:
         _require(out.shape == (B, 12) and np.isfinite(out).all(),
                  f"forecast not finite [{B}, 12]: {out.shape}")
     _require(not np.array_equal(outs[0], outs[1]), "distinct batches gave equal forecasts")
-    _require(launches == 2 * n_fwd, f"{launches} kernel launches in {n_fwd} forwards")
+    _require(launches == 2 * N_FWD, f"{launches} kernel launches in {N_FWD} forwards")
+    _require(v4_mha_launches == 0, f"gated_v4 launched the gated MHA {v4_mha_launches}×")
 
     with torch.inference_mode():
         main_calls = _gate_inputs(model, *captured[0])
@@ -200,24 +354,15 @@ def main():
                 fusion_err = max(fusion_err, (got - want).abs().max().item())
     _require(fusion_err <= KERNEL_ATOL, f"kernel vs plain on forward inputs: {fusion_err}")
 
-    small = build("gated_v4", device=dev, generator=torch.Generator().manual_seed(2),
-                  image_arch="tiny", vocab=VocabSizes(5, 6, 5, 126))
-    small_cpu = build("gated_v4", device="cpu", image_arch="tiny",
-                      vocab=VocabSizes(5, 6, 5, 126))
-    small_cpu.load_state_dict({k: v.cpu() for k, v in small.state_dict().items()})
-    sb = _synthetic_batch(8, 64, seed=3)
-    with torch.inference_mode():
-        on_card = small(_to_device(sb, dev))[0].cpu()
-        on_cpu = small_cpu(_to_device(sb, "cpu"))[0]
-    card_vs_cpu = (on_card - on_cpu).abs().max().item()
-    _emit({"phase": "forward", **card, "batch": B, "image": IMAGE, "forwards": n_fwd,
-           "launches": launches, "launches_per_forward": launches / n_fwd,
+    card_vs_cpu = _card_vs_cpu("gated_v4", dev)
+    _emit({"phase": "forward", **card, "model": "gated_v4", "batch": B, "image": IMAGE,
+           "forwards": N_FWD, "launches": launches, "launches_per_forward": launches / N_FWD,
            "forecast_absmax": float(np.abs(outs[0]).max()),
            "fusion_inputs_max_abs_err": fusion_err,
            "f32_card_vs_cpu_max_abs_err": card_vs_cpu, "f32_tol": F32_ATOL})
     _require(card_vs_cpu <= F32_ATOL, f"port on card vs CPU in f32: {card_vs_cpu}")
 
-    # 4. serving -----------------------------------------------------------------
+    # 5. serving -----------------------------------------------------------------
     srv = make_server(fn, header, port=0)
     serve_thread = threading.Thread(target=srv.serve_forever, daemon=True)
     serve_thread.start()
@@ -236,7 +381,7 @@ def main():
             with np.load(io.BytesIO(resp.read())) as z:
                 replies[i] = z["forecast"]
 
-    kernel.launches = 0
+    zero_counts()
     try:
         clients = [threading.Thread(target=post, args=(i,)) for i in range(len(sizes))]
         for c in clients:
@@ -268,95 +413,127 @@ def main():
              f"{serve_launches} launches in {health['dispatches']} dispatches")
     _require(max(serve_errs) <= SERVE_RTOL, f"served vs direct: {serve_errs}")
 
-    # 5. times -------------------------------------------------------------------
-    fn_s = []
-    for hb in host_batches:  # warm: the same callables served above
-        t0 = time.perf_counter()
-        fn(hb)
-        fn_s.append(time.perf_counter() - t0)
-    dev_batches = [_to_device(_synthetic_batch(B, IMAGE, seed=200 + i), dev)
-                   for i in range(8)]
+    # 6.–7. gated_v4 times, fused_gated_residual times ----------------------------
+    _emit({"phase": "times", **card, "model": "gated_v4",
+           **_forward_times(model, fn, host_batches, dev, seed=200)})
+    x, ctx, wx, wc, b = main_calls[1]
     with torch.inference_mode():
-        for b in dev_batches[:2]:
-            model(b)
-        cycle = itertools.cycle(dev_batches)
-        # Five windows of eight distinct batches each: their spread says how
-        # far one run's forward time can be trusted.
-        fwd_windows = [_cuda_ms(lambda: model(next(cycle)), len(dev_batches))
-                       for _ in range(5)]
-        fwd_ms = float(np.median(fwd_windows))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        model(dev_batches[0])
-        torch.cuda.synchronize()
-        peak_bytes = torch.cuda.max_memory_allocated()
-        with _profile() as prof:
-            for b in dev_batches[:2]:
-                model(b)
-            torch.cuda.synchronize()
-        fwd_device_ms = _device_us(prof) / 2e3
-        with FlopCounterMode(display=False) as flops:
-            model(dev_batches[1])
-        by_aten = {str(op): n for op, n in flops.get_flop_counts()["Global"].items()}
-        conv_flops = sum(n for op, n in by_aten.items() if "convolution" in op)
-        by_op = sorted(((e.key, e.self_device_time_total / 2e3)
-                        for e in prof.key_averages()
-                        if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
-                       key=lambda kv: -kv[1])[:10]
-        by_kernel = sorted(([e.key[:100], e.self_device_time_total / 2e3, e.count // 2]
-                            for e in prof.key_averages()
-                            if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
-                           key=lambda kv: -kv[1])[:8]
-
-        x, ctx, wx, wc, b = main_calls[1]
-        n_calls = 500
-        for f in (kernel, plain):
-            f(x, ctx, wx, wc, b)
-        k_call_ms = _cuda_ms(lambda: kernel(x, ctx, wx, wc, b), n_calls)
-        p_call_ms = _cuda_ms(lambda: plain(x, ctx, wx, wc, b), n_calls)
-        device_ms = {}
-        for name, f in (("kernel", kernel), ("plain", plain)):
-            with _profile() as prof:
-                for _ in range(n_calls):
-                    f(x, ctx, wx, wc, b)
-                torch.cuda.synchronize()
-            device_ms[name] = _device_us(prof) / n_calls / 1e3
+        device_ms, call_ms = _kernel_vs_plain_times(kernel, plain, (x, ctx, wx, wc, b), {})
     k_ms, p_ms = device_ms["kernel"], device_ms["plain"]
-    _require(k_ms > 0 and p_ms > 0, f"profiler saw no device time: {device_ms}")
     Bm, D = x.shape
     C = ctx.shape[1]
-    k_bytes = 4 * (Bm * D + Bm * C + D * D + C * D + D + Bm * D)
-    k_flops = 2 * Bm * D * (D + C) + 4 * Bm * D
-    bytes_ms, ops_ms = 1e3 * k_bytes / HBM_BYTES_PER_S, 1e3 * k_flops / F32_FLOP_PER_S
-    bound_ms = max(bytes_ms, ops_ms)
-    _emit({"phase": "times", **card, "batch": B, "forward_ms": fwd_ms,
-           "forward_ms_windows": fwd_windows,
-           "forecasts_per_s": B / (fwd_ms / 1e3),
-           "forward_device_busy_ms": fwd_device_ms,
-           "device_idle_share": max(0.0, 1.0 - fwd_device_ms / fwd_ms),
-           "forward_device_ms_by_op": dict(by_op),
-           "forward_top_kernels_ms_launches": by_kernel,
-           "forward_flops": flops.get_total_flops(), "conv_flops": conv_flops,
-           "conv_tflops_per_s": conv_flops / 1e9 / dict(by_op)["aten::cudnn_convolution"],
-           "serving_fn_ms_incl_copies": sorted(1e3 * t for t in fn_s),
-           "max_memory_allocated_bytes": peak_bytes})
+    k_bytes, k_flops = roofline.gated_residual_cost(Bm, D, C)
+    bound_ms, bound_by = roofline.bound_ms(k_bytes, k_flops)
     _emit({"phase": "kernel_times", **card,
            "kernel_shape": {"B": Bm, "D": D, "C": C},
            "kernel_device_us": 1e3 * k_ms, "plain_device_us": 1e3 * p_ms,
-           "kernel_call_us": 1e3 * k_call_ms, "plain_call_us": 1e3 * p_call_ms,
+           "kernel_call_us": 1e3 * call_ms["kernel"], "plain_call_us": 1e3 * call_ms["plain"],
            "kernel_bytes": k_bytes, "kernel_flops": k_flops, "bound_us": 1e3 * bound_ms,
            "library_ms": "none: no single PyTorch call computes this function"})
+    del model, fn
 
-    # 6. kernels line, card line, result -----------------------------------------
+    # 8. full-width gated_v2 forward through the serving callable ------------------
+    model = build("gated_v2", device=dev, generator=torch.Generator().manual_seed(0),
+                  vocab=VocabSizes(5, 6, 5, 126), output_len=12,
+                  image_arch="resnet101", image_dtype=torch.bfloat16)
+    fn, _ = make_forecaster(model, example, device=dev)
+    attn_mods = _gated_mha_modules(model)
+    attn_calls = [None] * len(attn_mods)
+
+    def capture(i):
+        def hook(mod, args, kwargs):
+            if attn_calls[i] is None:
+                attn_calls[i] = mod.kernel_inputs(*args, mask=kwargs.get("mask"))
+        return hook
+
+    hooks = [m.register_forward_pre_hook(capture(i), with_kwargs=True)
+             for i, m in enumerate(attn_mods)]
+    zero_counts()
+    outs = [fn(hb) for hb in host_batches]
+    mha_launches, v2_residual_launches = mha.launches, kernel.launches
+    for h in hooks:
+        h.remove()
+    for out in outs:
+        _require(out.shape == (B, 12) and np.isfinite(out).all(),
+                 f"gated_v2 forecast not finite [{B}, 12]: {out.shape}")
+    _require(not np.array_equal(outs[0], outs[1]), "distinct batches gave equal forecasts")
+    _require(mha_launches == 3 * N_FWD,
+             f"{mha_launches} gated MHA launches in {N_FWD} gated_v2 forwards")
+    _require(v2_residual_launches == 0,
+             f"gated_v2 launched the gated residual {v2_residual_launches}×")
+    variants = [m.variant for m in attn_mods]
+    with torch.inference_mode():
+        attn_errs = {}
+        for i, (args, variant) in enumerate(zip(attn_calls, variants)):
+            got = mha(*args, num_heads=attn_mods[i].num_heads, variant=variant)
+            want = mha_plain(*args, num_heads=attn_mods[i].num_heads, variant=variant)
+            attn_errs[f"call{i}/{variant}"], ok = _mha_err(got, want)
+            _require(ok, f"gated MHA vs plain on forward inputs: {attn_errs}")
+    v2_card_vs_cpu = _card_vs_cpu("gated_v2", dev)
+    _emit({"phase": "forward_v2", **card, "model": "gated_v2", "batch": B, "image": IMAGE,
+           "forwards": N_FWD, "launches": mha_launches,
+           "launches_per_forward": mha_launches / N_FWD,
+           "attention_shapes": [list(a[0].shape) + [a[1].shape[1]] for a in attn_calls],
+           "forecast_absmax": float(np.abs(outs[0]).max()),
+           "attention_inputs_max_abs_err": attn_errs,
+           "f32_card_vs_cpu_max_abs_err": v2_card_vs_cpu, "f32_tol": F32_ATOL})
+    _require(v2_card_vs_cpu <= F32_ATOL, f"gated_v2 on card vs CPU in f32: {v2_card_vs_cpu}")
+
+    # 9.–10. gated_v2 times, fused_gated_mha times per variant ---------------------
+    _emit({"phase": "times_v2", **card, "model": "gated_v2",
+           **_forward_times(model, fn, host_batches, dev, seed=300)})
+    per_variant = {}
+    with torch.inference_mode():
+        for i in (0, 2):  # trend-encoder layer 0 ("head"), decoder ("pure")
+            args, variant = attn_calls[i], variants[i]
+            kw = dict(num_heads=attn_mods[i].num_heads, variant=variant)
+            device_ms, call_ms = _kernel_vs_plain_times(mha, mha_plain, args, kw)
+            (Bm, Lq, D), Lk = args[0].shape, args[1].shape[1]
+            _require(args[1] is args[2], "key and value are one tensor on the main path")
+            n_bytes, flops = roofline.gated_mha_cost(
+                Bm, Lq, Lk, D, **kw, self_attention=args[0] is args[1])
+            v_bound_ms, v_bound_by = roofline.bound_ms(n_bytes, flops)
+            per_variant[variant] = {
+                "shape": {"B": args[0].shape[0], "Lq": args[0].shape[1],
+                          "Lk": args[1].shape[1], "D": args[0].shape[2], "heads": kw["num_heads"]},
+                "launches_per_forward": variants.count(variant),
+                "kernel_device_us": 1e3 * device_ms["kernel"],
+                "plain_device_us": 1e3 * device_ms["plain"],
+                "kernel_call_us": 1e3 * call_ms["kernel"],
+                "plain_call_us": 1e3 * call_ms["plain"],
+                "bytes": n_bytes, "flops": flops, "bound_us": 1e3 * v_bound_ms,
+                "bound_by": v_bound_by}
+    _emit({"phase": "mha_kernel_times", **card, "variants": per_variant,
+           "library_ms": "none: no single PyTorch call computes the gated epilogue"})
+    # The kernels line gives one launch's numbers averaged over a forward's
+    # mix of launches (two "head", one "pure").
+    mix = lambda key: sum(v["launches_per_forward"] * v[key] for v in per_variant.values()) \
+        / sum(v["launches_per_forward"] for v in per_variant.values()) / 1e3
+    mix_bytes = sum(v["launches_per_forward"] * v["bytes"] for v in per_variant.values())
+    mix_flops = sum(v["launches_per_forward"] * v["flops"] for v in per_variant.values())
+
+    # 11. kernels line, card line, result -----------------------------------------
     _emit({"kernels": [{
         "name": "fused_gated_residual", "route": "cuda",
         "source": "visuelle2_tpu_torch/csrc/gated_fusion.cu",
         "replaces": "visuelle2_tpu/ops/pallas/gated_fusion.py:59",
         "launches": launches,
         "max_abs_err": max(max(errs.values()), fusion_err), "tol": KERNEL_ATOL,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}]})
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None}, {
+        "name": "fused_gated_mha", "route": "cuda",
+        "source": "visuelle2_tpu_torch/csrc/gated_mha.cu",
+        "replaces": "visuelle2_tpu/ops/pallas/gated_mha.py:107",
+        "launches": mha_launches,
+        "max_abs_err": max(max(mha_errs.values()), max(attn_errs.values())),
+        "atol": MHA_ATOL, "rtol": MHA_RTOL,
+        "ms": mix("kernel_device_us"), "plain_ms": mix("plain_device_us"),
+        "bound_ms": mix("bound_us"),
+        "bound_by": roofline.bound_ms(mix_bytes, mix_flops)[1],
+        "library_ms": None,
+        "by_variant_us": {v: {k: per_variant[v][k] for k in
+                              ("kernel_device_us", "plain_device_us", "bound_us")}
+                          for v in per_variant}}]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

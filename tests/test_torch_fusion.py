@@ -1,11 +1,13 @@
-"""The fused gated residual and TG-Fusion: port vs the JAX package.
+"""The fusion networks and the fused gated residual: port vs the JAX package.
 
 On the CPU the wrapper runs its plain version; it is held against the JAX
 Pallas kernel in interpret mode (as tests/test_pallas_kernels.py runs it)
 and the TG-Fusion module against the JAX module on its Pallas path under
 ``pltpu.force_tpu_interpret_mode()``.  f32, atol 1e-5: the same formula, sums
 in another order.  The CUDA kernel itself is held against the plain version
-on the card by tests/test_torch_cuda.py and chip_smoke.py.
+on the card by tests/test_torch_cuda.py and chip_smoke.py.  The other
+fusion networks (plain tensor code in both packages) are held to their JAX
+modules at the same tolerance, with random BatchNorm running statistics.
 """
 
 import numpy as np
@@ -16,9 +18,11 @@ import jax.numpy as jnp
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from visuelle2_tpu.models import fusion as jfusion
 from visuelle2_tpu.models.fusion import TextGuidedFusionNetwork as JTGFusion
 from visuelle2_tpu.ops.pallas.gated_fusion import fused_gated_residual as j_fused
 from visuelle2_tpu_torch.convert import load_jax_variables
+from visuelle2_tpu_torch.models import fusion as tfusion
 from visuelle2_tpu_torch.models.fusion import TextGuidedFusionNetwork as TTGFusion
 from visuelle2_tpu_torch.ops.cuda import gated_fusion as tgf
 
@@ -88,3 +92,81 @@ def test_wrapper_never_falls_back_off_the_cpu(rng):
     mixed[2] = mixed[2].to("meta")
     with pytest.raises(ValueError, match="one device"):
         tgf.fused_gated_residual(*mixed)
+
+
+def _with_random_batch_stats(rng, variables):
+    """Replace every BatchNorm running mean/var so eval BN is not the identity."""
+    def fill(tree):
+        return {k: fill(v) if isinstance(v, dict) else
+                (rng.standard_normal(v.shape) * 0.5 if k == "mean"
+                 else rng.uniform(0.5, 2.0, v.shape)).astype(np.float32)
+                for k, v in tree.items()}
+    return {**variables, "batch_stats": fill(variables["batch_stats"])}
+
+
+# name -> (JAX module, port module, argument order); E = H = 16.
+_FUSIONS = {
+    "gtm": (lambda: jfusion.GTMFusionNetwork(16, 16),
+            lambda **ab: tfusion.GTMFusionNetwork(16, 16, **ab), "itd"),
+    "m4ft": (lambda: jfusion.M4FTFusionNetwork(16),
+             lambda **ab: tfusion.M4FTFusionNetwork(16), "tti"),
+    "gated_v1": (lambda: jfusion.ResidualGatedFusionNetwork(16, 16),
+                 lambda **ab: tfusion.ResidualGatedFusionNetwork(16, 16, **ab), "itd"),
+    "gated_v2": (lambda: jfusion.PureGatedFusionNetwork(16, 16),
+                 lambda **ab: tfusion.PureGatedFusionNetwork(16, 16, **ab), "itd"),
+    "targ_text": (lambda: jfusion.TARGFusionNetwork(16, query_modality="text"),
+                  lambda **ab: tfusion.TARGFusionNetwork(16, "text", **ab), "tti"),
+    "targ_image": (lambda: jfusion.TARGFusionNetwork(16, query_modality="image"),
+                   lambda **ab: tfusion.TARGFusionNetwork(16, "image", **ab), "tti"),
+}
+
+
+# Every network with each modality ablated, except a TARG anchor (see
+# test_targ_rejects_an_ablated_anchor).
+@pytest.mark.parametrize("name,ablate", [
+    (n, a) for n in sorted(_FUSIONS) for a in ("none", "img", "text")
+    if (n, a) not in (("targ_text", "text"), ("targ_image", "img"))])
+def test_fusion_networks_match_jax(rng, name, ablate):
+    jmake, tmake, order = _FUSIONS[name]
+    B = 6
+    m4ft_style = order == "tti"
+    img = rng.standard_normal((B, 16)).astype(np.float32) if ablate != "img" else None
+    text = (rng.standard_normal((B, 16) if m4ft_style else (B, 4, 16)).astype(np.float32)
+            if ablate != "text" else None)
+    temporal = rng.standard_normal((B, 16)).astype(np.float32)
+    args = (temporal, text, img) if m4ft_style else (img, text, temporal)
+    variables = jax.tree_util.tree_map(np.array, jmake().init(jax.random.key(0), *args))
+    if "batch_stats" in variables:
+        variables = _with_random_batch_stats(rng, variables)
+    want = jmake().apply(variables, *args)
+    tm = load_jax_variables(tmake(use_img=ablate != "img", use_text=ablate != "text"),
+                            variables).eval()
+    got = tm(*(None if a is None else torch.from_numpy(a) for a in args))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+def test_targ_gate_names_count_ablated_contexts():
+    """gate_fc{i} numbers the contexts in order, ablated ones too."""
+    names = lambda m: sorted(n for n, _ in m.named_children() if n.startswith("gate_fc"))
+    assert names(tfusion.TARGFusionNetwork(16, "text")) == ["gate_fc1", "gate_fc2"]
+    assert names(tfusion.TARGFusionNetwork(16, "text", use_img=False)) == ["gate_fc2"]
+    assert names(tfusion.TARGFusionNetwork(16, "image", use_text=False)) == ["gate_fc2"]
+    assert names(tfusion.TARGFusionNetwork(16, "temporal", use_text=False)) == ["gate_fc2"]
+
+
+def test_targ_rejects_an_ablated_anchor():
+    with pytest.raises(ValueError, match="anchor"):
+        tfusion.TARGFusionNetwork(16, "text", use_text=False)
+    with pytest.raises(ValueError, match="query_modality"):
+        tfusion.TARGFusionNetwork(16, "audio")
+
+
+def test_pure_gated_fusion_gate_starts_open():
+    """gate_fc's bias starts at +2.0 under the registry's init, as in JAX;
+    every nn.Linear bias starts at 0."""
+    from visuelle2_tpu_torch.models.registry import init_parameters
+
+    m = tfusion.PureGatedFusionNetwork(16, 16)
+    init_parameters(m, torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(m.gate_fc.bias.detach().numpy(), 2.0)
+    np.testing.assert_array_equal(m.fusion_fc.bias.detach().numpy(), 0.0)

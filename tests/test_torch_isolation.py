@@ -44,7 +44,8 @@ def test_importing_the_port_loads_no_jax():
         "import visuelle2_tpu_torch.models, visuelle2_tpu_torch.eval.export\n"
         "import visuelle2_tpu_torch.eval.server\n"
         "from visuelle2_tpu_torch.models import build\n"
-        "m = build('gated_v4', device='cpu', image_arch='tiny', embedding_dim=16,"
+        "for name in ('gated_v4', 'gated_v2', 'gtm', 'm4ft', 'gated_v1', 'gated_v3'):\n"
+        "    build(name, device='cpu', image_arch='tiny', embedding_dim=16,"
         " hidden_dim=16)\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(n for n in new if n.split('.')[0] in %r)\n"

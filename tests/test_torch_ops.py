@@ -99,25 +99,39 @@ def test_encoder_layer_matches_jax(rng):
     _close(tm(_t(x), mask=_t(np.array(mask))), want)
 
 
+def test_gated_encoder_matches_jax(rng):
+    """gated_v2's trend encoder: HeadSpecificGatedAttention layers (the
+    port's wrapper runs its plain version on the CPU)."""
+    x = rng.standard_normal((3, 52, 16)).astype(np.float32)
+    mask = jmasks.gcd_block_mask(52, 12)
+    jm = jtr.TransformerEncoder(16, 4, 2, dim_feedforward=64, gated=True)
+    variables = _init(jm, x, mask=mask)
+    want = jm.apply(variables, x, mask=mask)
+    tm = _port(ttr.TransformerEncoder(16, 4, 2, dim_feedforward=64, gated=True), variables)
+    _close(tm(_t(x), mask=_t(np.array(mask))), want, atol=2e-5)
+
+
+@pytest.mark.parametrize("variant", ["standard", "gated_v1", "gated_v2"])
 @pytest.mark.parametrize("autoregressive", [False, True])
-def test_decoder_matches_jax(rng, autoregressive):
+def test_decoder_matches_jax(rng, autoregressive, variant):
     L = 12 if autoregressive else 1
     tgt = rng.standard_normal((4, L, 16)).astype(np.float32)
     mem = rng.standard_normal((4, 52, 16)).astype(np.float32)
     jmask = jmasks.causal_mask(L) if autoregressive else None
     tmask = tmasks.causal_mask(L) if autoregressive else None
-    jm = jtr.TransformerDecoder(16, 4, 1, dim_feedforward=64)
+    jm = jtr.TransformerDecoder(16, 4, 1, dim_feedforward=64, variant=variant)
     variables = _init(jm, tgt, mem, tgt_mask=jmask)
     want = jm.apply(variables, tgt, mem, tgt_mask=jmask)
-    tm = _port(ttr.TransformerDecoder(16, 4, 1, dim_feedforward=64), variables)
-    _close(tm(_t(tgt), _t(mem), tgt_mask=tmask), want)
+    tm = _port(ttr.TransformerDecoder(16, 4, 1, dim_feedforward=64, variant=variant),
+               variables)
+    # The gated-MHA tolerance of tests/test_pallas_kernels.py for gated_v2.
+    _close(tm(_t(tgt), _t(mem), tgt_mask=tmask), want,
+           atol=2e-5 if variant == "gated_v2" else ATOL)
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ttr.TransformerEncoder(16, 4, 2, gated=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ttr.TransformerDecoder(16, 4, 1, variant="gated_v2")
+    with pytest.raises(KeyError, match="gated_v2"):
+        ttr.TransformerDecoder(16, 4, 1, variant="gated_v5")
 
 
 @pytest.mark.parametrize("with_h0", [False, True])
@@ -134,13 +148,14 @@ def test_gru_matches_jax(rng, with_h0):
     _close(got_h, want_h)
 
 
-def test_gtrend_embedder_matches_jax(rng):
+@pytest.mark.parametrize("gated", [False, True])
+def test_gtrend_embedder_matches_jax(rng, gated):
     g = rng.random((4, 3, 52)).astype(np.float32)
-    jm = jenc.GTrendEmbedder(12, 16, nhead=4)
+    jm = jenc.GTrendEmbedder(12, 16, nhead=4, gated=gated)
     variables = _init(jm, g)
     want = jm.apply(variables, g)
-    tm = _port(tenc.GTrendEmbedder(12, 16, nhead=4), variables)
-    _close(tm(_t(g)), want)
+    tm = _port(tenc.GTrendEmbedder(12, 16, nhead=4, gated=gated), variables)
+    _close(tm(_t(g)), want, atol=2e-5 if gated else ATOL)
 
 
 @pytest.mark.parametrize("combine", ["sum", "stack", "concat_proj"])
@@ -159,6 +174,10 @@ def test_dummy_and_sales_encoders_match_jax(rng):
     jm = jenc.DummyEmbedder(16)
     variables = _init(jm, temporal)
     _close(_port(tenc.DummyEmbedder(16), variables)(_t(temporal)),
+           jm.apply(variables, temporal))
+    jm = jenc.TemporalEmbedder(16, 24)
+    variables = _init(jm, temporal)
+    _close(_port(tenc.TemporalEmbedder(16, 24), variables)(_t(temporal)),
            jm.apply(variables, temporal))
 
     sales = rng.random((7, 2, 1)).astype(np.float32)

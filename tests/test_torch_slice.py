@@ -1,5 +1,7 @@
-"""The whole ported slice on the CPU: gated_v4 vs the JAX model, the strict
-weight bridge, and an HTTP round trip through the port's server.
+"""The whole ported seq2seq family on the CPU: each variant vs its JAX model
+(gated_v2 and gated_v4 also vs the JAX model's Pallas path), the modality
+ablations, the strict weight bridge, and an HTTP round trip through the
+port's server.
 
 Small widths (tiny backbone, E=H=16, 32² images, B ≤ 8).  f32 tolerance
 1e-4, as in tests/test_whole_model_golden.py: a whole forward stacks many
@@ -34,16 +36,19 @@ def _kw(**extra):
                 **extra)
 
 
-def _jax_model(**extra):
-    model = jbuild("gated_v4", vocab=JVocab(5, 6, 5, 126), **_kw(**extra))
+FAMILY = ("gtm", "m4ft", "gated_v1", "gated_v2", "gated_v3", "gated_v4")
+
+
+def _jax_model(name="gated_v4", **extra):
+    model = jbuild(name, vocab=JVocab(5, 6, 5, 126), **_kw(**extra))
     batch = _synthetic_batch(4, 32, seed=5)
     variables = model.init({"params": jax.random.key(0), "dropout": jax.random.key(1)},
                            batch, train=False)
     return model, jax.tree_util.tree_map(np.array, variables)
 
 
-def _port_model(variables, **extra):
-    model = build("gated_v4", device="cpu", vocab=VocabSizes(5, 6, 5, 126), **_kw(**extra))
+def _port_model(variables, name="gated_v4", **extra):
+    model = build(name, device="cpu", vocab=VocabSizes(5, 6, 5, 126), **_kw(**extra))
     return load_jax_variables(model, variables)
 
 
@@ -61,6 +66,41 @@ def test_gated_v4_matches_jax(autoregressive, use_img):
     with torch.inference_mode():
         got, aux = tm(_torch_batch(batch))
     assert aux is None and tuple(got.shape) == (6, 12)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+def _assert_port_matches_jax(name, seed, **extra):
+    jm, variables = _jax_model(name, **extra)
+    batch = _synthetic_batch(6, 32, seed=seed)
+    want, _ = jm.apply(variables, batch, train=False)
+    with torch.inference_mode():
+        got, aux = _port_model(variables, name, **extra)(_torch_batch(batch))
+    assert aux is None and tuple(got.shape) == (6, 12)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("autoregressive", [False, True])
+@pytest.mark.parametrize("name", FAMILY)
+def test_seq2seq_family_matches_jax(name, autoregressive):
+    _assert_port_matches_jax(name, 13, autoregressive=autoregressive)
+
+
+@pytest.mark.parametrize("name,ablation", [
+    *((n, "use_img") for n in ("gtm", "m4ft", "gated_v1", "gated_v2", "gated_v3")),
+    *((n, "use_text") for n in ("gtm", "m4ft", "gated_v2"))])
+def test_ablations_match_jax(name, ablation):
+    _assert_port_matches_jax(name, 14, **{ablation: False})
+
+
+def test_gated_v2_matches_jax_pallas_path():
+    """The JAX model on its Pallas path (fused gated MHA, interpret mode)."""
+    _, variables = _jax_model("gated_v2")
+    batch = _synthetic_batch(5, 32, seed=12)
+    with pltpu.force_tpu_interpret_mode():
+        want, _ = jbuild("gated_v2", vocab=JVocab(5, 6, 5, 126), use_pallas=True,
+                         **_kw()).apply(variables, batch, train=False)
+    with torch.inference_mode():
+        got, _ = _port_model(variables, "gated_v2")(_torch_batch(batch))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
@@ -107,13 +147,38 @@ def test_bridge_is_strict():
         load_jax_variables(port(), wrong)
 
 
+def test_bridge_is_strict_for_gated_v2():
+    _, variables = _jax_model("gated_v2")
+    port = lambda: build("gated_v2", device="cpu", vocab=VocabSizes(5, 6, 5, 126), **_kw())
+    load_jax_variables(port(), variables)
+
+    gate = ("params", "decoder", "layer0", "cross_attn", "gate_proj", "bias")
+    missing = jax.tree_util.tree_map(np.array, variables)
+    _drop(missing, gate)
+    with pytest.raises(KeyError, match="cross_attn/gate_proj/bias"):
+        load_jax_variables(port(), missing)
+
+    extra = jax.tree_util.tree_map(np.array, variables)
+    extra["params"]["gtrend_encoder"]["encoder"]["layer1"]["self_attn"]["stray"] = {
+        "kernel": np.zeros((4, 4), np.float32)}
+    with pytest.raises(ValueError, match="stray"):
+        load_jax_variables(port(), extra)
+
+
 def test_build_covers_only_the_slice():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        build("gated_v2", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        build("cross_attn_rnn_210", device="cpu")
+    for name in FAMILY:
+        model = build(name, device="cpu", **_kw())
+        assert model.variant == name and not model.training
+    for name, queue in (("cross_attn_rnn_21", "Queue 1 item 9"),
+                        ("cross_attn_rnn_210", "Queue 1 item 9"),
+                        ("cross_attn_rnn_demand", "Queue 1 item 9"),
+                        ("gtm_v1", "Queue 1 item 10"), ("oracle", "Queue 1 item 10")):
+        with pytest.raises(NotImplementedError, match=queue):
+            build(name, device="cpu")
     with pytest.raises(KeyError):
         build("no_such_model", device="cpu")
+    with pytest.raises(ValueError, match="text-anchored"):
+        build("gated_v4", device="cpu", use_text=False, **_kw())
     model = build("gated_v4", device="cpu", **_kw())
     assert not model.training
     model.train()

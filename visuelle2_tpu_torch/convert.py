@@ -12,10 +12,10 @@ torch module                flax leaves                        transform
 ``nn.Conv2d``               ``kernel`` HWIO, ``bias``          weight = OIHW
 ``nn.Embedding``            ``embedding``                      as is
 ``nn.LayerNorm``            ``scale``, ``bias``                weight, bias
-``resnet.BatchNorm``        ``scale``, ``bias`` + batch_stats  weight, bias,
-                            ``mean``, ``var``                  running_mean, running_var
+``resnet.BatchNorm``,       ``scale``, ``bias`` + batch_stats  weight, bias,
+``norms.BatchNorm1d``       ``mean``, ``var``                  running_mean, running_var
 ``gru.GRU``                 ``w_i``, ``w_h``, ``b_i``, ``b_h``  as is (JAX layout)
-``fusion._GateParams``      ``kernel [in, out]``, ``bias``     as is (JAX layout)
+``attention._Weights``      ``kernel [in, out]``, ``bias``     as is (JAX layout)
 ==========================  =================================  ===========================
 
 The bridge is strict: every torch parameter and persistent buffer is assigned
@@ -32,8 +32,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from visuelle2_tpu_torch.models.fusion import _GateParams
+from visuelle2_tpu_torch.models.norms import BatchNorm1d
 from visuelle2_tpu_torch.models.resnet import BatchNorm
+from visuelle2_tpu_torch.ops.attention import _Weights
 from visuelle2_tpu_torch.ops.gru import GRU
 
 
@@ -66,11 +67,12 @@ _RULES = (
                  ("params", "bias", "bias", _same)]),
     (nn.Embedding, [("params", "embedding", "weight", _same)]),
     (nn.LayerNorm, [("params", "scale", "weight", _same), ("params", "bias", "bias", _same)]),
-    (BatchNorm, [("params", "scale", "weight", _same), ("params", "bias", "bias", _same),
-                 ("batch_stats", "mean", "running_mean", _same),
-                 ("batch_stats", "var", "running_var", _same)]),
+    ((BatchNorm, BatchNorm1d), [("params", "scale", "weight", _same),
+                                ("params", "bias", "bias", _same),
+                                ("batch_stats", "mean", "running_mean", _same),
+                                ("batch_stats", "var", "running_var", _same)]),
     (GRU, [("params", n, n, _same) for n in ("w_i", "w_h", "b_i", "b_h")]),
-    (_GateParams, [("params", "kernel", "kernel", _same), ("params", "bias", "bias", _same)]),
+    (_Weights, [("params", "kernel", "kernel", _same), ("params", "bias", "bias", _same)]),
 )
 
 
@@ -102,7 +104,7 @@ def load_jax_variables(model: nn.Module, variables) -> nn.Module:
         path = tuple(mod_name.split(".")) if mod_name else ()
         for col, leaf, attr, transform in rules:
             if getattr(mod, attr, None) is None:
-                continue  # e.g. a bias-free conv
+                continue  # e.g. a bias-free conv or Dense
             key = (col, path + (leaf,))
             if key[1] not in leaves[col]:
                 raise KeyError(f"JAX variables lack {col}/{'/'.join(key[1])} "

@@ -1,14 +1,17 @@
-"""Modality encoders of the gated_v4 path, counterpart of
+"""Modality encoders of the seq2seq family, counterpart of
 ``visuelle2_tpu/models/encoders.py``.
 
 * ``SalesEncoder``       — GRU over the sales history
 * ``AttributeEncoder``   — 4 embeddings, combine ∈ {sum, stack, concat_proj}
-* ``DummyEmbedder``      — 4 scalar linears -> concat -> fuse
+* ``DummyEmbedder``      — 4 scalar linears -> concat -> fuse (GTM style)
+* ``TemporalEmbedder``   — 4 scalar linears -> concat -> proj to hidden_dim
+  (M4FT style)
 * ``ImagePooledEncoder`` — uint8 NHWC -> normalize -> ResNet -> 1x1 conv ->
   global mean [-> final proj]; the pooled mean is computed in the working
   dtype and cast to f32, as in the JAX package
 * ``GTrendEmbedder``     — linear -> sinusoidal positions -> post-norm
-  encoder under the gcd block mask (non-gated form)
+  encoder under the gcd block mask; ``gated=True`` is gated_v2's encoder,
+  whose self-attention runs the fused gated-MHA kernel
 
 Eval mode only: dropout is the identity there, so the port has none yet.
 """
@@ -87,6 +90,24 @@ class DummyEmbedder(nn.Module):
         return self.fusion(torch.cat(parts, dim=-1))
 
 
+class TemporalEmbedder(nn.Module):
+    """M4FT temporal encoder: 4 linears -> concat -> proj to hidden_dim."""
+
+    def __init__(self, embedding_dim: int, hidden_dim: int):
+        super().__init__()
+        E = embedding_dim
+        self.day = nn.Linear(1, E)
+        self.week = nn.Linear(1, E)
+        self.month = nn.Linear(1, E)
+        self.year = nn.Linear(1, E)
+        self.proj = nn.Linear(4 * E, hidden_dim)
+
+    def forward(self, temporal):
+        parts = [layer(temporal[:, i: i + 1])
+                 for i, layer in enumerate((self.day, self.week, self.month, self.year))]
+        return self.proj(torch.cat(parts, dim=-1))
+
+
 class ImagePooledEncoder(nn.Module):
     """ResNet -> 1x1 conv projection -> global average pool [-> final proj].
 
@@ -115,7 +136,7 @@ class ImagePooledEncoder(nn.Module):
 
 
 class GTrendEmbedder(nn.Module):
-    """Trend transformer encoder with the gcd block mask (non-gated):
+    """Trend transformer encoder with the gcd block mask:
     gtrends [B, num_trends, trend_len] -> memory [B, trend_len, E]."""
 
     def __init__(self, forecast_horizon: int, embedding_dim: int, num_trends: int = 3,

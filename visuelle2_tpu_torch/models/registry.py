@@ -3,9 +3,11 @@
 ``build(name, device=..., generator=..., **overrides)`` returns an eval-mode
 ``nn.Module`` on ``device`` (``cuda`` unless the caller passes one; see
 ``_device.py``), its weights drawn from ``generator`` with the JAX package's
-initializers: lecun-normal Dense/Conv kernels, zero biases, unit norms,
-U(±1/√H) GRU weights.  Only ``gated_v4`` is ported; every other registry name
-raises ``NotImplementedError`` naming its ROADMAP slice.
+initializers: lecun-normal Dense/Conv kernels, zero biases (``_Weights``
+biases at their ``bias_init``, +2.0 for the gated_v2 gates), unit norms,
+U(±1/√H) GRU weights.  The seq2seq family is ported (``gtm``, ``m4ft``,
+``gated_v1`` … ``gated_v4``); every other registry name raises
+``NotImplementedError`` naming its ROADMAP slice.
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ import torch
 from torch import nn
 
 from visuelle2_tpu_torch._device import resolve_device
-from visuelle2_tpu_torch.models.fusion import _GateParams
+from visuelle2_tpu_torch.models.norms import BatchNorm1d
 from visuelle2_tpu_torch.models.resnet import BatchNorm
-from visuelle2_tpu_torch.models.seq2seq import Seq2SeqForecaster
+from visuelle2_tpu_torch.models.seq2seq import VARIANTS, Seq2SeqForecaster
+from visuelle2_tpu_torch.ops.attention import _Weights
 from visuelle2_tpu_torch.ops.gru import GRU
 
 # emb 32 / hidden 64 / heads 4 / layers 1 for the GTM family.
@@ -29,11 +32,6 @@ _LATER = {
     "cross_attn_rnn_21": "Queue 1 item 9 (CrossAttnRNN slice)",
     "cross_attn_rnn_210": "Queue 1 item 9 (CrossAttnRNN slice)",
     "cross_attn_rnn_demand": "Queue 1 item 9 (CrossAttnRNN slice)",
-    "gtm": "Queue 1 item 6 (seq2seq-family slice)",
-    "m4ft": "Queue 1 item 6 (seq2seq-family slice)",
-    "gated_v1": "Queue 1 item 6 (seq2seq-family slice)",
-    "gated_v2": "Queue 1 item 6 (seq2seq-family slice)",
-    "gated_v3": "Queue 1 item 6 (seq2seq-family slice)",
     "gtm_v1": "Queue 1 item 10 (remaining models)",
     "oracle": "Queue 1 item 10 (remaining models)",
 }
@@ -66,16 +64,17 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 # flax Embed: variance_scaling(1, fan_in, normal, out_axis=0)
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.num_embeddings),
                                    generator=generator)
-            elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
+            elif isinstance(mod, (nn.LayerNorm, BatchNorm, BatchNorm1d)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
             elif isinstance(mod, GRU):
                 bound = 1.0 / math.sqrt(mod.hidden_dim)
                 for p in (mod.w_i, mod.w_h, mod.b_i, mod.b_h):
                     p.uniform_(-bound, bound, generator=generator)
-            elif isinstance(mod, _GateParams):
+            elif isinstance(mod, _Weights):
                 _lecun_normal_(mod.kernel, mod.kernel.shape[0], generator)
-                mod.bias.fill_(mod.bias_init)
+                if mod.bias is not None:
+                    mod.bias.fill_(mod.bias_init)
 
 
 def build(name: str, *, device=None, generator: Optional[torch.Generator] = None,
@@ -85,10 +84,10 @@ def build(name: str, *, device=None, generator: Optional[torch.Generator] = None
     ``generator`` (default: seeded with 0) draws the initial weights;
     ``convert.load_jax_variables`` replaces them with a JAX model's.
     """
-    if name != "gated_v4":
+    if name not in VARIANTS:
         if name in _LATER:
             raise NotImplementedError(f"model {name!r} is ported in ROADMAP {_LATER[name]}")
-        raise KeyError(f"unknown model {name!r}; known: {sorted([*_LATER, 'gated_v4'])}")
+        raise KeyError(f"unknown model {name!r}; known: {sorted([*_LATER, *VARIANTS])}")
     dev = resolve_device(device)
     model = Seq2SeqForecaster(variant=name, **{**_GTM_DEFAULTS, **overrides})
     init_parameters(model, generator or torch.Generator().manual_seed(0))

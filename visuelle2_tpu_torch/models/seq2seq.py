@@ -2,9 +2,10 @@
 ``visuelle2_tpu/models/seq2seq.py``.
 
 One configurable ``Seq2SeqForecaster``; the ``VARIANTS`` table pins each
-reference model.  This slice ports ``gated_v4`` (TG-Fusion + standard
-encoder/decoder), non-AR and AR; the other variants raise
-``NotImplementedError`` naming the ROADMAP slice that ports them.
+reference model (gtm, m4ft, gated_v1 … gated_v4): its encoder style, fusion
+network, trend encoder and decoder.  Non-AR and AR, with the ``use_text`` /
+``use_img`` ablations of the JAX module: an ablated modality's encoder is
+not built and the fusion drops or zeroes its term.
 
 Decode semantics:
 
@@ -14,7 +15,10 @@ Decode semantics:
   with sinusoidal positions and a causal mask, ``Linear(H -> 1)``.
 
 The trend encoder has 4 heads unless it is the gated (v2) one, which takes
-``num_heads``.  Eval mode only: training arrives with the training slice.
+``num_heads``.  gated_v2 runs the fused gated-MHA kernel three times per
+forward (two trend-encoder layers, one decoder cross-attention) and gated_v4
+the fused gated residual twice.  Eval mode only: training arrives with the
+training slice.
 """
 
 from __future__ import annotations
@@ -31,8 +35,16 @@ from visuelle2_tpu_torch.models.encoders import (
     GTrendEmbedder,
     ImagePooledEncoder,
     SalesEncoder,
+    TemporalEmbedder,
 )
-from visuelle2_tpu_torch.models.fusion import TextGuidedFusionNetwork
+from visuelle2_tpu_torch.models.fusion import (
+    GTMFusionNetwork,
+    M4FTFusionNetwork,
+    PureGatedFusionNetwork,
+    ResidualGatedFusionNetwork,
+    TARGFusionNetwork,
+    TextGuidedFusionNetwork,
+)
 from visuelle2_tpu_torch.ops.masks import causal_mask
 from visuelle2_tpu_torch.ops.positional import PositionalEncoding
 from visuelle2_tpu_torch.ops.transformer import TransformerDecoder
@@ -49,6 +61,7 @@ class Seq2SeqVariant:
 
 
 VARIANTS = {
+    # Each pins the JAX package's configuration of that reference model.
     "gtm": Seq2SeqVariant("gtm", "gtm", "standard"),
     "m4ft": Seq2SeqVariant("m4ft", "m4ft", "standard"),
     "gated_v1": Seq2SeqVariant("gtm", "gated_v1", "gated_v1"),
@@ -56,7 +69,9 @@ VARIANTS = {
     "gated_v3": Seq2SeqVariant("m4ft", "targ_v3", "standard"),
     "gated_v4": Seq2SeqVariant("gtm", "tg_v4", "standard"),
 }
-PORTED_VARIANTS = ("gated_v4",)
+# Fusions whose call takes (temporal, text, image); the rest take
+# (image, text, temporal), as in the JAX package.
+_TEMPORAL_FIRST = ("m4ft", "targ_v3")
 
 
 class Seq2SeqForecaster(nn.Module):
@@ -66,36 +81,46 @@ class Seq2SeqForecaster(nn.Module):
                  trend_len: int = 52, num_trends: int = 3,
                  use_encoder_mask: bool = True, autoregressive: bool = False,
                  use_text: bool = True, use_img: bool = True,
+                 query_modality: str = "text",
                  image_arch: str = "resnet101", image_dtype=torch.float32):
         super().__init__()
         if variant not in VARIANTS:
             raise KeyError(f"unknown variant {variant!r}; known: {sorted(VARIANTS)}")
-        if variant not in PORTED_VARIANTS:
-            raise NotImplementedError(
-                f"variant {variant!r} is ported with the seq2seq-family slice, "
-                "ROADMAP Queue 1 item 6")
-        if not use_text:
+        cfg = VARIANTS[variant]
+        if cfg.fusion == "tg_v4" and not use_text:
             raise ValueError("TG-Fusion is text-anchored: use_text=False is "
                              "structurally impossible for gated_v4")
-        cfg = VARIANTS[variant]
         E, H = embedding_dim, hidden_dim
         self.variant = variant
+        self.fusion_kind = cfg.fusion
         self.output_len = output_len
         self.autoregressive = autoregressive
-        self.use_img = use_img
 
         self.gtrend_encoder = GTrendEmbedder(
             output_len, H, num_trends=num_trends, trend_len=trend_len,
             use_mask=use_encoder_mask, num_layers=2,
             nhead=num_heads if cfg.trend_encoder_gated else 4,
             gated=cfg.trend_encoder_gated)
-        self.text_encoder = AttributeEncoder(
+        # The m4ft style projects every modality to hidden_dim.
+        m4ft = cfg.encoder_style == "m4ft"
+        self.text_encoder = (AttributeEncoder(
             vocab.num_cat, vocab.num_col, vocab.num_fab, vocab.num_store, E,
-            combine="stack")
-        self.image_encoder = (ImagePooledEncoder(E, arch=image_arch, dtype=image_dtype)
+            combine="concat_proj" if m4ft else "stack", hidden_dim=H)
+            if use_text else None)
+        self.image_encoder = (ImagePooledEncoder(E, final_dim=H if m4ft else None,
+                                                 arch=image_arch, dtype=image_dtype)
                               if use_img else None)
-        self.dummy_encoder = DummyEmbedder(E)
-        self.fusion = TextGuidedFusionNetwork(E, H, use_img=use_img)
+        self.temporal_encoder = TemporalEmbedder(E, H) if m4ft else None
+        self.dummy_encoder = None if m4ft else DummyEmbedder(E)
+        ablations = dict(use_img=use_img, use_text=use_text)
+        self.fusion = {
+            "gtm": lambda: GTMFusionNetwork(E, H, **ablations),
+            "m4ft": lambda: M4FTFusionNetwork(H),
+            "gated_v1": lambda: ResidualGatedFusionNetwork(E, H, **ablations),
+            "gated_v2": lambda: PureGatedFusionNetwork(E, H, **ablations),
+            "targ_v3": lambda: TARGFusionNetwork(H, query_modality, **ablations),
+            "tg_v4": lambda: TextGuidedFusionNetwork(E, H, use_img=use_img),
+        }[cfg.fusion]()
         self.sales_encoder = SalesEncoder(H)
         self.decoder = TransformerDecoder(H, num_heads, num_layers,
                                           dim_feedforward=H * 4, variant=cfg.decoder)
@@ -119,14 +144,20 @@ class Seq2SeqForecaster(nn.Module):
         N = B * W
 
         memory = repeat_windows(self.gtrend_encoder(batch["gtrends"]), W)
-        h_text = repeat_windows(self.text_encoder(
-            batch["cat"], batch["col"], batch["fab"], batch["store"]), W)
-        h_img = None
+        h_text = h_img = None
+        if self.text_encoder is not None:
+            h_text = repeat_windows(self.text_encoder(
+                batch["cat"], batch["col"], batch["fab"], batch["store"]), W)
         if self.image_encoder is not None:
             h_img = repeat_windows(self.image_encoder(
                 batch["images"], img_idx=batch.get("img_idx")), W)
-        h_dummy = repeat_windows(self.dummy_encoder(batch["temporal"]), W)
-        static_context = self.fusion(h_img, h_text, h_dummy)
+        temporal_encoder = (self.dummy_encoder if self.temporal_encoder is None
+                            else self.temporal_encoder)
+        h_dummy = repeat_windows(temporal_encoder(batch["temporal"]), W)
+        if self.fusion_kind in _TEMPORAL_FIRST:
+            static_context = self.fusion(h_dummy, h_text, h_img)
+        else:
+            static_context = self.fusion(h_img, h_text, h_dummy)
 
         h_sales = self.sales_encoder(sales)
         decoder_input = h_sales[:, -1, :] + static_context

@@ -1,0 +1,50 @@
+"""Bounds on one NVIDIA H100 SXM for the work of each TPU kernel.
+
+A kernel's bound is the least time the card could take for its work: the
+larger of the bytes it must move (each distinct input read once, each
+output written once) over the HBM rate, and the operations it does over
+the card's peak rate for their type (NVIDIA's data sheet, dense rates, at
+the 700 W power limit).  The bound is arithmetic on shapes: it needs no card.
+``chip_smoke.py`` computes each ported kernel's bound from the shapes of its
+run with these functions.
+"""
+
+from __future__ import annotations
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {
+    "f32": 67e12,     # float32 outside the tensor cores
+    "bf16": 989e12,   # tensor cores
+    "int8": 1979e12,  # tensor cores
+}
+
+
+def bound_ms(n_bytes: float, ops: float, kind: str = "f32"):
+    """(least ms, "bytes" or "operations", whichever sets it)."""
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / PEAK_OPS_PER_S[kind]
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def gated_residual_cost(B: int, D: int, C: int):
+    """``fused_gated_residual``: x [B, D], ctx [B, C], Wx, Wc, b in; out
+    [B, D]; the two products and the gate epilogue, in f32."""
+    n_bytes = 4 * (B * D + B * C + D * D + C * D + D + B * D)
+    flops = 2 * B * D * (D + C) + 4 * B * D
+    return n_bytes, flops
+
+
+def gated_mha_cost(B: int, Lq: int, Lk: int, D: int, num_heads: int, variant: str,
+                   *, self_attention: bool):
+    """``fused_gated_mha``, f32.  ``self_attention``: query, key and value
+    are one tensor; otherwise key and value are one tensor (the decoder's
+    cross-attention over the trend memory), as on the model path.  FLOPs of
+    the q/k/v projections, scores, probabilities·v, gate and output
+    product, 2 per multiply-add."""
+    d = D // num_heads
+    G = d if variant == "head" else D
+    activations = B * Lq * D if self_attention else B * Lq * D + B * Lk * D
+    weights = 4 * D * D + 4 * D + G * G + G
+    n_bytes = 4 * (activations + Lq * Lk + weights + B * Lq * D)
+    flops = 2 * B * ((Lq + 2 * Lk) * D * D + 2 * Lq * Lk * D + Lq * D * G + Lq * D * D)
+    return n_bytes, flops

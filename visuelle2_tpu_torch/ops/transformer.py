@@ -3,9 +3,19 @@ counterpart of ``visuelle2_tpu/ops/transformer.py``.
 
 ReLU FFN, post-norm, batch-first ``[B, L, D]``, eval mode (no dropout).
 Every LayerNorm sets ``eps=1e-6``: that is flax's default, and torch's 1e-5
-would drift from the JAX package.  Only the "standard" layers are ported; the
-gated layers of the Proposed models arrive with the seq2seq-family slice
-(ROADMAP Queue 1 item 6).
+would drift from the JAX package.
+
+The JAX package's gated layers differ from the standard ones only in one
+attention module and, in train mode, in the dropout on its residual; in eval
+mode each is the standard layer with that module swapped:
+
+* ``GatedTransformerEncoderLayer`` (gated_v2 trend encoder) —
+  ``TransformerEncoderLayer(gated=True)``: ``self_attn`` is
+  ``HeadSpecificGatedAttention``;
+* ``GatedTransformerDecoderLayerV1`` / ``V2`` — ``TransformerDecoderLayer``
+  with ``variant="gated_v1"`` / ``"gated_v2"``: ``cross_attn`` is
+  ``GatedCrossAttention`` / ``PureGatedMultiHeadAttention``, and the residual
+  is ``norm2(tgt + ca)`` as in the standard layer.
 """
 
 from __future__ import annotations
@@ -15,9 +25,21 @@ from typing import Optional
 import torch
 from torch import nn
 
-from visuelle2_tpu_torch.ops.attention import MultiHeadAttention
+from visuelle2_tpu_torch.ops.attention import (
+    GatedCrossAttention,
+    HeadSpecificGatedAttention,
+    MultiHeadAttention,
+    PureGatedMultiHeadAttention,
+)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
+
+# Decoder variant -> its cross-attention module.
+_CROSS_ATTN = {
+    "standard": MultiHeadAttention,
+    "gated_v1": GatedCrossAttention,
+    "gated_v2": PureGatedMultiHeadAttention,
+}
 
 
 class _FFN(nn.Module):
@@ -31,9 +53,11 @@ class _FFN(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: Optional[int] = None):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: Optional[int] = None,
+                 gated: bool = False):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nhead)
+        self.self_attn = (HeadSpecificGatedAttention if gated else MultiHeadAttention)(
+            d_model, nhead)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ffn = _FFN(d_model, dim_feedforward or 2048)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -45,11 +69,14 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class TransformerDecoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: Optional[int] = None):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: Optional[int] = None,
+                 variant: str = "standard"):
         super().__init__()
+        if variant not in _CROSS_ATTN:
+            raise KeyError(f"unknown decoder variant {variant!r}; known: {sorted(_CROSS_ATTN)}")
         self.self_attn = MultiHeadAttention(d_model, nhead)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.cross_attn = MultiHeadAttention(d_model, nhead)
+        self.cross_attn = _CROSS_ATTN[variant](d_model, nhead)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ffn = _FFN(d_model, dim_feedforward or 2048)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -63,19 +90,16 @@ class TransformerDecoderLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    """Stack of encoder layers named ``layer{i}`` as in the JAX module."""
+    """Stack of encoder layers named ``layer{i}`` as in the JAX module;
+    ``gated=True`` is gated_v2's trend encoder."""
 
     def __init__(self, d_model: int, nhead: int, num_layers: int,
                  dim_feedforward: Optional[int] = None, gated: bool = False):
         super().__init__()
-        if gated:
-            raise NotImplementedError(
-                "the gated trend encoder (gated_v2) is ported with the "
-                "seq2seq-family slice, ROADMAP Queue 1 item 6")
         self.num_layers = num_layers
         for i in range(num_layers):
-            self.add_module(f"layer{i}",
-                            TransformerEncoderLayer(d_model, nhead, dim_feedforward))
+            self.add_module(f"layer{i}", TransformerEncoderLayer(
+                d_model, nhead, dim_feedforward, gated=gated))
 
     def forward(self, src, *, mask=None):
         for i in range(self.num_layers):
@@ -84,19 +108,16 @@ class TransformerEncoder(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
-    """Stack of decoder layers named ``layer{i}``; only ``variant="standard"``."""
+    """Stack of decoder layers named ``layer{i}``; ``variant`` is "standard",
+    "gated_v1" or "gated_v2"."""
 
     def __init__(self, d_model: int, nhead: int, num_layers: int,
                  dim_feedforward: Optional[int] = None, variant: str = "standard"):
         super().__init__()
-        if variant != "standard":
-            raise NotImplementedError(
-                f"decoder variant {variant!r} is ported with the seq2seq-family "
-                "slice, ROADMAP Queue 1 item 6")
         self.num_layers = num_layers
         for i in range(num_layers):
-            self.add_module(f"layer{i}",
-                            TransformerDecoderLayer(d_model, nhead, dim_feedforward))
+            self.add_module(f"layer{i}", TransformerDecoderLayer(
+                d_model, nhead, dim_feedforward, variant=variant))
 
     def forward(self, tgt, memory, *, tgt_mask=None, memory_mask=None):
         for i in range(self.num_layers):
