@@ -12,15 +12,18 @@ import torch
 
 from visuelle2_tpu_torch.models import VocabSizes, build
 from visuelle2_tpu_torch.ops.cuda import _build
+from visuelle2_tpu_torch.ops.cuda import additive_attention as taa
 from visuelle2_tpu_torch.ops.cuda import gated_fusion as tgf
 from visuelle2_tpu_torch.ops.cuda import gated_mha as tgm
+from visuelle2_tpu_torch.ops.cuda import gru_seq as tgs
 from visuelle2_tpu_torch.ops.masks import gcd_block_mask
 
 pytestmark = pytest.mark.cuda
 
 ATOL = 1e-5  # kernel vs plain: both f32, sums in another order
-# Gated MHA: the tolerance tests/test_pallas_kernels.py holds the Pallas
-# kernel to (softmax and five chained products, sums in another order).
+# Gated MHA and additive attention: the tolerance tests/test_pallas_kernels.py
+# holds the gated-MHA Pallas kernel to (softmax after chained products, sums
+# in another order).
 MHA_ATOL, MHA_RTOL = 2e-5, 1e-5
 
 
@@ -167,4 +170,126 @@ def test_slice_on_card_matches_cpu():
         on_cpu = cpu(tb)[0]
     assert tgf.fused_gated_residual.launches == before + 2
     # f32 on both; the card's cuDNN/cuBLAS sum in another order (TF32 off).
+    torch.testing.assert_close(on_card, on_cpu, atol=1e-4, rtol=0)
+
+
+def _additive_inputs(B, L, De, Dd, A, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * scale).astype(np.float32)).cuda()
+    return [f(B, L, De), f(B, Dd), f(De, A, scale=De ** -0.5), f(Dd, A, scale=Dd ** -0.5),
+            f(A, 1, scale=A ** -0.5), f(1)]
+
+
+@pytest.mark.parametrize("weight_on", ["inputs", "projected"])
+@pytest.mark.parametrize("shape", [
+    (128, 100, 512, 512, 512),   # Demand: image patches
+    (128, 52, 512, 512, 512),    # trend steps
+    (128, 4, 512, 512, 512),     # fused tokens
+    (37, 13, 48, 40, 24),        # ragged batch, De ≠ Dd ≠ A
+    (5, 2, 16, 20, 16),          # two tokens (ablations)
+    (3, 150, 32, 16, 80),        # more rows than one tile, A not a multiple of 64
+    (3, 7, 13, 9, 70),           # De not a multiple of the 32-deep slice
+    (23, 100, 40, 24, 200),      # the large tile: rows and A not multiples of 128
+])
+def test_additive_attention_kernel_matches_plain(weight_on, shape):
+    args = _additive_inputs(*shape)
+    before = taa.fused_additive_attention.launches
+    got = taa.fused_additive_attention(*args, weight_on=weight_on)
+    torch.cuda.synchronize()
+    assert taa.fused_additive_attention.launches == before + 1
+    want = taa.fused_additive_attention_plain(*args, weight_on=weight_on)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=MHA_ATOL, rtol=MHA_RTOL)
+
+
+def test_additive_attention_no_fallback_without_the_kernel(monkeypatch):
+    def no_library():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(_build, "load_library", no_library)
+    taa._kernel.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="unavailable"):
+            taa.fused_additive_attention(*_additive_inputs(4, 6, 8, 8, 8))
+    finally:
+        taa._kernel.cache_clear()
+
+
+def _gru_inputs(B, T, I, H, seed=0):
+    rng = np.random.default_rng(seed)
+    bound = H ** -0.5
+    f = lambda *s: torch.from_numpy(rng.uniform(-bound, bound, s).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.random((B, T, I)).astype(np.float32)).cuda()
+    return [x, f(I, 3 * H), f(H, 3 * H), f(3 * H), f(3 * H)]
+
+
+@pytest.mark.parametrize("shape,atol", [((37, 9, 5, 24), 2e-5), ((5, 4, 3, 13), 2e-5),
+                                        # static + dynamic shared memory over 48 KB,
+                                        # the dynamic part under it
+                                        ((9, 6, 3, 200), 2e-5),
+                                        ((128, 52, 3, 512), 1e-4)])
+def test_gru_kernel_matches_plain_and_cudnn(shape, atol):
+    """The recurrence kernel against the plain step loop and cuDNN's
+    torch.nn.GRU (same weights, transposed).  At full width 52 steps of
+    512-long sums carry the rounding forward: 1e-4 there (chip_smoke.py
+    prints the measured error)."""
+    args = _gru_inputs(*shape)
+    before = tgs.fused_gru_sequence.launches
+    outs, h_last = tgs.fused_gru_sequence(*args)
+    torch.cuda.synchronize()
+    assert tgs.fused_gru_sequence.launches == before + 1
+    want, want_h = tgs.fused_gru_sequence_plain(*args)
+    torch.testing.assert_close(outs, want, atol=atol, rtol=0)
+    torch.testing.assert_close(h_last, want_h, atol=atol, rtol=0)
+    x, w_i, w_h, b_i, b_h = args
+    ref = tgs.cudnn_gru(w_i, w_h, b_i, b_h)
+    with torch.inference_mode():
+        lib, lib_h = ref(x)
+    torch.testing.assert_close(outs, lib, atol=atol, rtol=0)
+    torch.testing.assert_close(h_last, lib_h[0], atol=atol, rtol=0)
+
+
+def test_gru_module_kernel_path_on_card():
+    """GRU(use_kernel=True) launches the kernel once per call, with h0."""
+    from visuelle2_tpu_torch.ops.gru import GRU
+
+    x, w_i, w_h, b_i, b_h = _gru_inputs(6, 11, 3, 32)
+    gru = GRU(3, 32, use_kernel=True).cuda()
+    with torch.no_grad():
+        for p, v in zip((gru.w_i, gru.w_h, gru.b_i, gru.b_h), (w_i, w_h, b_i, b_h)):
+            p.copy_(v)
+    h0 = torch.randn(6, 32, device="cuda")
+    before = tgs.fused_gru_sequence.launches
+    with torch.inference_mode():
+        outs, h_last = gru(x, h0)
+    assert tgs.fused_gru_sequence.launches == before + 1
+    want, want_h = tgs.fused_gru_sequence_plain(x, w_i, w_h, b_i, b_h, h0)
+    torch.testing.assert_close(outs, want, atol=2e-5, rtol=0)
+    torch.testing.assert_close(h_last, want_h, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name,launches", [("cross_attn_rnn_demand", 36),
+                                           ("cross_attn_rnn_21", 3),
+                                           ("cross_attn_rnn_210", 30)])
+def test_cross_attn_rnn_on_card_matches_cpu(name, launches):
+    """A small model (tiny backbone, f32) on the card launches the additive
+    attention kernel three times per decode step and matches the CPU."""
+    kw = dict(image_arch="tiny", vocab=VocabSizes(5, 6, 5, 126), attention_dim=32,
+              embedding_dim=32, hidden_dim=48)
+    if name == "cross_attn_rnn_210":
+        kw["out_len"] = 10
+    model = build(name, **kw)
+    cpu = build(name, device="cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch = _batch(6)
+    if name != "cross_attn_rnn_demand":
+        rng = np.random.default_rng(4)
+        batch["X"] = rng.random((6, 2, 2)).astype(np.float32)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    before = taa.fused_additive_attention.launches
+    with torch.inference_mode():
+        on_card = model({k: v.cuda() for k, v in tb.items()})[0].cpu()
+        on_cpu = cpu(tb)[0]
+    assert taa.fused_additive_attention.launches == before + launches
     torch.testing.assert_close(on_card, on_cpu, atol=1e-4, rtol=0)

@@ -44,9 +44,11 @@ def test_importing_the_port_loads_no_jax():
         "import visuelle2_tpu_torch.models, visuelle2_tpu_torch.eval.export\n"
         "import visuelle2_tpu_torch.eval.server\n"
         "from visuelle2_tpu_torch.models import build\n"
-        "for name in ('gated_v4', 'gated_v2', 'gtm', 'm4ft', 'gated_v1', 'gated_v3'):\n"
+        "for name in ('gated_v4', 'gated_v2', 'gtm', 'm4ft', 'gated_v1', 'gated_v3',\n"
+        "             'cross_attn_rnn_21', 'cross_attn_rnn_210', 'cross_attn_rnn_demand'):\n"
         "    build(name, device='cpu', image_arch='tiny', embedding_dim=16,"
-        " hidden_dim=16)\n"
+        " hidden_dim=16, **({'attention_dim': 16} if 'cross' in name else {}))\n"
+        "import visuelle2_tpu_torch.ops.cuda.gru_seq\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(n for n in new if n.split('.')[0] in %r)\n"
         "assert 'jax' not in sys.modules and not bad, bad\n"

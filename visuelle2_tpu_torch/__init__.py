@@ -11,10 +11,13 @@ Every TPU kernel on a ported path is a kernel written by hand for Hopper
 a kernel wrapper launches its kernel or raises; the plain PyTorch version
 beside it runs only for CPU tensors.
 
-Ported so far: the ``gated_v4`` demand forecaster's eval forward and the
-HTTP server that serves it (``models.build``, ``eval.export.make_forecaster``,
-``eval.server.make_server``).  Entry points put the model on ``cuda`` unless
-the caller passes ``device="cpu"`` (``_device.resolve_device``).
+Ported so far: the eval forwards of the seq2seq family (``gtm``, ``m4ft``,
+``gated_v1`` … ``gated_v4``) and of the CrossAttnRNN family
+(``cross_attn_rnn_21``, ``cross_attn_rnn_210``, ``cross_attn_rnn_demand``),
+and the HTTP server that serves them (``models.build``,
+``eval.export.make_forecaster``, ``eval.server.make_server``).  Entry points
+put the model on ``cuda`` unless the caller passes ``device="cpu"``
+(``_device.resolve_device``).
 
 Numeric traps the tests guard (each is restated where it lives):
 
@@ -23,6 +26,8 @@ Numeric traps the tests guard (each is restated where it lives):
 * BatchNorm is folded in the working dtype as ``models/resnet.py`` does;
 * ``normalize_images`` computes in the working dtype, so bf16 rounds alike;
 * the bf16 pooled image mean is cast to f32 before the fusion;
+* CrossAttnRNN patch tokens are flattened from NHWC, as in JAX, though the
+  backbone returns an NCHW view of channels_last memory;
 * attention masks are additive 0 / −inf; the trend encoder has 4 heads;
 * cuDNN runs f32 convolutions in TF32 by default: comparisons in f32 set
   ``torch.backends.cudnn.allow_tf32 = False``.

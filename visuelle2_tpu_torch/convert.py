@@ -14,7 +14,8 @@ torch module                flax leaves                        transform
 ``nn.LayerNorm``            ``scale``, ``bias``                weight, bias
 ``resnet.BatchNorm``,       ``scale``, ``bias`` + batch_stats  weight, bias,
 ``norms.BatchNorm1d``       ``mean``, ``var``                  running_mean, running_var
-``gru.GRU``                 ``w_i``, ``w_h``, ``b_i``, ``b_h``  as is (JAX layout)
+``gru.GRU``,                ``w_i``, ``w_h``, ``b_i``, ``b_h``  as is (JAX layout)
+``gru.GRUCellModule``
 ``attention._Weights``      ``kernel [in, out]``, ``bias``     as is (JAX layout)
 ==========================  =================================  ===========================
 
@@ -35,7 +36,7 @@ from torch import nn
 from visuelle2_tpu_torch.models.norms import BatchNorm1d
 from visuelle2_tpu_torch.models.resnet import BatchNorm
 from visuelle2_tpu_torch.ops.attention import _Weights
-from visuelle2_tpu_torch.ops.gru import GRU
+from visuelle2_tpu_torch.ops.gru import GRUParams
 
 
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -71,7 +72,7 @@ _RULES = (
                                 ("params", "bias", "bias", _same),
                                 ("batch_stats", "mean", "running_mean", _same),
                                 ("batch_stats", "var", "running_var", _same)]),
-    (GRU, [("params", n, n, _same) for n in ("w_i", "w_h", "b_i", "b_h")]),
+    (GRUParams, [("params", n, n, _same) for n in ("w_i", "w_h", "b_i", "b_h")]),
     (_Weights, [("params", "kernel", "kernel", _same), ("params", "bias", "bias", _same)]),
 )
 

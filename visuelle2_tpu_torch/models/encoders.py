@@ -1,11 +1,15 @@
-"""Modality encoders of the seq2seq family, counterpart of
-``visuelle2_tpu/models/encoders.py``.
+"""Modality encoders, counterpart of ``visuelle2_tpu/models/encoders.py``.
 
+* ``TSEmbedder``         — GRU over the trend series (CrossAttnRNN family)
 * ``SalesEncoder``       — GRU over the sales history
 * ``AttributeEncoder``   — 4 embeddings, combine ∈ {sum, stack, concat_proj}
 * ``DummyEmbedder``      — 4 scalar linears -> concat -> fuse (GTM style)
 * ``TemporalEmbedder``   — 4 scalar linears -> concat -> proj to hidden_dim
   (M4FT style)
+* ``TemporalFeatureEncoder`` — 4 scalar linears summed (CrossAttnRNN style);
+  ``shared_day_embedding`` applies the one ``day`` linear to all four
+* ``ImagePatchEncoder``  — uint8 NHWC -> normalize -> ResNet -> patch tokens
+  in the JAX NHWC order, cast to f32 -> linear (CrossAttnRNN family)
 * ``ImagePooledEncoder`` — uint8 NHWC -> normalize -> ResNet -> 1x1 conv ->
   global mean [-> final proj]; the pooled mean is computed in the working
   dtype and cast to f32, as in the JAX package
@@ -29,6 +33,17 @@ from visuelle2_tpu_torch.ops.gru import GRU
 from visuelle2_tpu_torch.ops.masks import gcd_block_mask
 from visuelle2_tpu_torch.ops.positional import PositionalEncoding
 from visuelle2_tpu_torch.ops.transformer import TransformerEncoder
+
+
+class TSEmbedder(nn.Module):
+    """GRU over the trend series: [B, T, C] -> outputs [B, T, E]."""
+
+    def __init__(self, embedding_dim: int, input_dim: int = 3):
+        super().__init__()
+        self.gru = GRU(input_dim, embedding_dim)
+
+    def forward(self, x):
+        return self.gru(x)[0]
 
 
 class SalesEncoder(nn.Module):
@@ -106,6 +121,54 @@ class TemporalEmbedder(nn.Module):
         parts = [layer(temporal[:, i: i + 1])
                  for i, layer in enumerate((self.day, self.week, self.month, self.year))]
         return self.proj(torch.cat(parts, dim=-1))
+
+
+class TemporalFeatureEncoder(nn.Module):
+    """Four scalar features -> E each, summed.  ``shared_day_embedding=True``
+    applies the ``day`` linear to all four features, as the reference Demand
+    model does; the JAX tree then holds only ``day``."""
+
+    def __init__(self, embedding_dim: int, shared_day_embedding: bool = False):
+        super().__init__()
+        E = embedding_dim
+        self.day = nn.Linear(1, E)
+        if shared_day_embedding:
+            self.week = self.month = self.year = None
+        else:
+            self.week = nn.Linear(1, E)
+            self.month = nn.Linear(1, E)
+            self.year = nn.Linear(1, E)
+
+    def forward(self, temporal):
+        layers = ([self.day] * 4 if self.week is None
+                  else [self.day, self.week, self.month, self.year])
+        out = 0.0
+        for i, layer in enumerate(layers):
+            out = out + layer(temporal[:, i: i + 1])
+        return out
+
+
+class ImagePatchEncoder(nn.Module):
+    """ResNet -> patch tokens -> linear: uint8 NHWC [B, H, W, 3] ->
+    [B, (H/32)·(W/32), E] in f32; ``img_idx`` (optional [N] int) expands the
+    features of unique images to rows by gather."""
+
+    def __init__(self, embedding_dim: int, arch: str = "resnet101", dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.backbone = ResNetBackbone(STAGE_BLOCKS[arch], dtype=dtype)
+        self.fc = nn.Linear(2048, embedding_dim)
+
+    def forward(self, images_u8, img_idx=None):
+        x = normalize_images(images_u8, dtype=self.dtype).permute(0, 3, 1, 2)
+        # The backbone's output is an NCHW view of channels_last memory; the
+        # JAX patch order is that of NHWC, so flatten from NHWC.
+        feats = self.backbone(x).permute(0, 2, 3, 1)
+        B, H, W, C = feats.shape
+        out = self.fc(feats.reshape(B, H * W, C).float())
+        if img_idx is not None:
+            out = out.index_select(0, img_idx)
+        return out
 
 
 class ImagePooledEncoder(nn.Module):

@@ -5,9 +5,11 @@
 ``_device.py``), its weights drawn from ``generator`` with the JAX package's
 initializers: lecun-normal Dense/Conv kernels, zero biases (``_Weights``
 biases at their ``bias_init``, +2.0 for the gated_v2 gates), unit norms,
-U(±1/√H) GRU weights.  The seq2seq family is ported (``gtm``, ``m4ft``,
-``gated_v1`` … ``gated_v4``); every other registry name raises
-``NotImplementedError`` naming its ROADMAP slice.
+U(±1/√H) GRU weights.  The seq2seq family (``gtm``, ``m4ft``,
+``gated_v1`` … ``gated_v4``) and the CrossAttnRNN family
+(``cross_attn_rnn_21``, ``cross_attn_rnn_210``, ``cross_attn_rnn_demand``)
+are ported; ``gtm_v1`` and ``oracle`` raise ``NotImplementedError`` naming
+their ROADMAP slice.
 """
 
 from __future__ import annotations
@@ -19,19 +21,29 @@ import torch
 from torch import nn
 
 from visuelle2_tpu_torch._device import resolve_device
+from visuelle2_tpu_torch.models.cross_attn_rnn import (
+    CrossAttnRNN21,
+    CrossAttnRNN210,
+    CrossAttnRNNDemand,
+)
+from visuelle2_tpu_torch.models.encoders import ImagePatchEncoder, ImagePooledEncoder
 from visuelle2_tpu_torch.models.norms import BatchNorm1d
 from visuelle2_tpu_torch.models.resnet import BatchNorm
 from visuelle2_tpu_torch.models.seq2seq import VARIANTS, Seq2SeqForecaster
 from visuelle2_tpu_torch.ops.attention import _Weights
-from visuelle2_tpu_torch.ops.gru import GRU
+from visuelle2_tpu_torch.ops.gru import GRUParams
 
-# emb 32 / hidden 64 / heads 4 / layers 1 for the GTM family.
+# Reference dims: 512 for CrossAttnRNN; emb 32 / hidden 64 / heads 4 /
+# layers 1 for the GTM family.
+_CROSS_ATTN_DEFAULTS = dict(attention_dim=512, embedding_dim=512, hidden_dim=512)
 _GTM_DEFAULTS = dict(embedding_dim=32, hidden_dim=64, num_heads=4, num_layers=1)
 
+_CROSS_ATTN = {
+    "cross_attn_rnn_21": CrossAttnRNN21,
+    "cross_attn_rnn_210": CrossAttnRNN210,
+    "cross_attn_rnn_demand": CrossAttnRNNDemand,
+}
 _LATER = {
-    "cross_attn_rnn_21": "Queue 1 item 9 (CrossAttnRNN slice)",
-    "cross_attn_rnn_210": "Queue 1 item 9 (CrossAttnRNN slice)",
-    "cross_attn_rnn_demand": "Queue 1 item 9 (CrossAttnRNN slice)",
     "gtm_v1": "Queue 1 item 10 (remaining models)",
     "oracle": "Queue 1 item 10 (remaining models)",
 }
@@ -67,7 +79,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(mod, (nn.LayerNorm, BatchNorm, BatchNorm1d)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-            elif isinstance(mod, GRU):
+            elif isinstance(mod, GRUParams):
                 bound = 1.0 / math.sqrt(mod.hidden_dim)
                 for p in (mod.w_i, mod.w_h, mod.b_i, mod.b_h):
                     p.uniform_(-bound, bound, generator=generator)
@@ -84,13 +96,19 @@ def build(name: str, *, device=None, generator: Optional[torch.Generator] = None
     ``generator`` (default: seeded with 0) draws the initial weights;
     ``convert.load_jax_variables`` replaces them with a JAX model's.
     """
-    if name not in VARIANTS:
-        if name in _LATER:
-            raise NotImplementedError(f"model {name!r} is ported in ROADMAP {_LATER[name]}")
-        raise KeyError(f"unknown model {name!r}; known: {sorted([*_LATER, *VARIANTS])}")
+    if name in _LATER:
+        raise NotImplementedError(f"model {name!r} is ported in ROADMAP {_LATER[name]}")
+    if name in _CROSS_ATTN:
+        make = lambda: _CROSS_ATTN[name](**{**_CROSS_ATTN_DEFAULTS, **overrides})
+    elif name in VARIANTS:
+        make = lambda: Seq2SeqForecaster(variant=name, **{**_GTM_DEFAULTS, **overrides})
+    else:
+        raise KeyError(f"unknown model {name!r}; known: "
+                       f"{sorted([*_LATER, *_CROSS_ATTN, *VARIANTS])}")
     dev = resolve_device(device)
-    model = Seq2SeqForecaster(variant=name, **{**_GTM_DEFAULTS, **overrides})
+    model = make()
     init_parameters(model, generator or torch.Generator().manual_seed(0))
-    if model.image_encoder is not None:
-        model.image_encoder.to(memory_format=torch.channels_last)
+    for mod in model.modules():
+        if isinstance(mod, (ImagePatchEncoder, ImagePooledEncoder)):
+            mod.to(memory_format=torch.channels_last)
     return model.to(dev).eval()

@@ -15,6 +15,11 @@ Every module here returns ``(output, probabilities or None)``, as torch's
   the CPU.  No probabilities.
 * ``GatedCrossAttention`` — gated_v1's query-gated standard MHA (plain XLA in
   the JAX package, plain tensor code here).  No probabilities.
+* ``AdditiveAttention`` — the CrossAttnRNN family's Bahdanau attention,
+  ``weight_on`` "inputs" or "projected"; ``_Weights`` children as in the JAX
+  module, and the forward always goes through
+  ``ops/cuda/additive_attention.py::fused_additive_attention``.  Returns
+  (weighted encoding, α).
 
 Eval mode only: attention dropout is the identity there.
 """
@@ -26,6 +31,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from visuelle2_tpu_torch.ops.cuda.additive_attention import fused_additive_attention
 from visuelle2_tpu_torch.ops.cuda.gated_mha import fused_gated_mha
 from visuelle2_tpu_torch.ops.heads import merge_heads, split_heads
 
@@ -128,3 +134,25 @@ class GatedCrossAttention(nn.Module):
     def forward(self, query, key, value, *, mask: Optional[torch.Tensor] = None):
         attn_out, _ = self.mha(query, key, value, mask=mask)
         return attn_out * torch.sigmoid(self.gate_proj(query)), None
+
+
+class AdditiveAttention(nn.Module):
+    """Bahdanau attention: α = softmax_L(v·tanh(enc·We + dec·Wd) + vb);
+    returns (α-weighted enc or enc·We [B, L, Dw], α [B, L])."""
+
+    def __init__(self, encoder_dim: int, decoder_dim: int, attention_dim: int,
+                 weight_on: str = "inputs"):
+        super().__init__()
+        self.weight_on = weight_on
+        self.encoder_linear = _Weights(encoder_dim, attention_dim, use_bias=False)
+        self.decoder_linear = _Weights(decoder_dim, attention_dim, use_bias=False)
+        self.attn_linear = _Weights(attention_dim, 1)
+
+    def kernel_inputs(self, encoder_out, decoder_hidden):
+        """The positional arguments this module hands ``fused_additive_attention``."""
+        return [encoder_out, decoder_hidden, self.encoder_linear.kernel,
+                self.decoder_linear.kernel, self.attn_linear.kernel, self.attn_linear.bias]
+
+    def forward(self, encoder_out, decoder_hidden):
+        return fused_additive_attention(*self.kernel_inputs(encoder_out, decoder_hidden),
+                                        weight_on=self.weight_on)

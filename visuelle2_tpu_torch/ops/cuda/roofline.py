@@ -48,3 +48,23 @@ def gated_mha_cost(B: int, Lq: int, Lk: int, D: int, num_heads: int, variant: st
     n_bytes = 4 * (activations + Lq * Lk + weights + B * Lq * D)
     flops = 2 * B * ((Lq + 2 * Lk) * D * D + 2 * Lq * Lk * D + Lq * D * G + Lq * D * D)
     return n_bytes, flops
+
+
+def additive_attention_cost(B: int, L: int, De: int, Dd: int, A: int, weight_on: str):
+    """``fused_additive_attention``, f32: enc, dec and the weights in; out
+    [B, L, Dw] and α [B, L] out.  FLOPs of enc·We, dec·Wd, the energy's
+    product with v and the scaling, 2 per multiply-add."""
+    Dw = De if weight_on == "inputs" else A
+    n_bytes = 4 * (B * L * De + B * Dd + De * A + Dd * A + A + 1 + B * L * Dw + B * L)
+    flops = 2 * B * L * De * A + 2 * B * Dd * A + 2 * B * L * A + B * L * Dw
+    return n_bytes, flops
+
+
+def gru_sequence_cost(B: int, T: int, H: int):
+    """``fused_gru_sequence``'s recurrence, f32 (the input projection runs
+    outside it): gi [B, T, 3H], W_h, b_h and h0 in; outs [B, T, H] and h_T
+    out.  Per step the [B, H]·[H, 3H] product and about ten operations per
+    gate element of the epilogue."""
+    n_bytes = 4 * (B * T * 3 * H + 3 * H * H + 3 * H + B * H + B * T * H + B * H)
+    flops = T * (2 * B * H * 3 * H + 10 * B * H)
+    return n_bytes, flops

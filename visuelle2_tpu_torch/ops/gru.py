@@ -2,9 +2,12 @@
 
 The parameters keep the JAX layout: ``w_i [I, 3H]``, ``w_h [H, 3H]``,
 ``b_i [3H]``, ``b_h [3H]``, gate order (r, z, n) — the order of
-``torch.nn.GRU`` as well, transposed.  The recurrence is a plain step loop,
-so the port of ``ops/pallas/gru_seq.py::fused_gru_sequence`` (ROADMAP Queue 2)
-can take its place as one kernel later.
+``torch.nn.GRU`` as well, transposed.  ``GRU`` runs the recurrence as a
+plain step loop by default, as the JAX default is ``lax.scan``;
+``use_kernel=True`` (the JAX ``use_pallas``) runs it through
+``ops/cuda/gru_seq.py::fused_gru_sequence``.  No model turns it on, because
+no JAX model does.  ``GRUCellModule`` is one step with the same parameters,
+for the decoders whose step loop lives in the model.
 """
 
 from __future__ import annotations
@@ -31,8 +34,19 @@ def gru_cell_step(x, h, w_i, w_h, b_i, b_h):
     return (1.0 - z) * n + z * h
 
 
-class GRU(nn.Module):
-    """Single-layer batch-first GRU: [B, T, I] -> (outputs [B, T, H], h_T [B, H])."""
+def gru_sequence(x, w_i, w_h, b_i, b_h, h0: Optional[torch.Tensor] = None):
+    """The step loop: x [B, T, I] -> (outputs [B, T, H], h_T [B, H])."""
+    h = x.new_zeros(x.shape[0], w_h.shape[0]) if h0 is None else h0
+    ys = []
+    for t in range(x.shape[1]):
+        h = gru_cell_step(x[:, t], h, w_i, w_h, b_i, b_h)
+        ys.append(h)
+    return torch.stack(ys, dim=1), h
+
+
+class GRUParams(nn.Module):
+    """``w_i [I, 3H]``, ``w_h [H, 3H]``, ``b_i``, ``b_h [3H]`` in the JAX
+    layout, drawn U(±1/√H) by ``registry.init_parameters``."""
 
     def __init__(self, input_dim: int, hidden_dim: int):
         super().__init__()
@@ -43,11 +57,28 @@ class GRU(nn.Module):
         self.b_i = nn.Parameter(torch.empty(H3))
         self.b_h = nn.Parameter(torch.empty(H3))
 
+
+class GRU(GRUParams):
+    """Single-layer batch-first GRU: [B, T, I] -> (outputs [B, T, H], h_T [B, H])."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, use_kernel: bool = False):
+        super().__init__(input_dim, hidden_dim)
+        self.use_kernel = use_kernel
+
     def forward(self, x, h0: Optional[torch.Tensor] = None):
-        B, T, _ = x.shape
-        h = x.new_zeros(B, self.hidden_dim) if h0 is None else h0
-        ys = []
-        for t in range(T):
-            h = gru_cell_step(x[:, t], h, self.w_i, self.w_h, self.b_i, self.b_h)
-            ys.append(h)
-        return torch.stack(ys, dim=1), h
+        if self.use_kernel:
+            # Imported here: gru_seq takes this module's step loop as its plain version.
+            from visuelle2_tpu_torch.ops.cuda.gru_seq import fused_gru_sequence
+
+            # The kernel takes contiguous inputs; the trend encoder hands over
+            # a transposed view.
+            return fused_gru_sequence(x.contiguous(), self.w_i, self.w_h, self.b_i,
+                                      self.b_h, h0)
+        return gru_sequence(x, self.w_i, self.w_h, self.b_i, self.b_h, h0)
+
+
+class GRUCellModule(GRUParams):
+    """One GRU step, x [B, I], h [B, H] -> new h [B, H]."""
+
+    def forward(self, x, h):
+        return gru_cell_step(x, h, self.w_i, self.w_h, self.b_i, self.b_h)
