@@ -67,10 +67,28 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    launches per forward, and the bound;
 18. gru_kernel_times — at the trend GRU's shape, the device time per call
    and time per call of the kernel path (input GEMM and the 52 step
-   launches), of its plain version and of ``torch.nn.GRU``, and the bound.
+   launches), of its plain version and of ``torch.nn.GRU``, and the bound;
+19. probe_kernels — the conv-floor probe's three kernels (``matmul_bf16``,
+   ``matmul_int8``, ``read_reduce``) against their plain versions: the JAX
+   parity check's size and seed (``perf.convfloor.parity_check``), both
+   full probe shapes (A = 720896 x 256 -> 64, B = 184320 x 512 -> 128) and
+   a ragged one; int8 bit for bit equal to plain and ``torch._int_mm``,
+   bf16 within one bf16 ulp beyond the f32 sums' reordering bound, the
+   read probe's full-K partials within atol 1e-4 + rtol 1e-5 (every column
+   of x read) and its bias reaching every partial; one launch per call;
+20. convfloor_times — the roofline harness's probe (``perf.convfloor.
+   measure_shape``, the path that runs these kernels) at both shapes: the
+   five measurements and ``torch.sum``'s as µs, TFLOP/s and GB/s (replays
+   of a CUDA graph of calls), the plain versions' µs (CUDA events), the
+   profiler's device µs per kernel record, and the bounds;
+21. conv_roofline — the harness's square bf16 GEMM controls, the 24
+   ResNet-101 conv shapes at B=128 in bf16 with their FLOP-weighted sum
+   beside the ``aten::cudnn_convolution`` ms of phase 6's gated_v4 forward,
+   the artifact check, and the epilogue and chain ratios.
 
-Then the ``kernels`` line, the ``nvidia-smi`` line and, last, the ``ok``
-line.  Without a CUDA device it exits non-zero before printing any result.
+Then the ``kernels`` line (seven kernels), the ``nvidia-smi`` line and,
+last, the ``ok`` line.  Without a CUDA device it exits non-zero before
+printing any result.
 """
 
 from __future__ import annotations
@@ -107,6 +125,10 @@ N_FWD = 3                   # forwards of each main-path run
 # into the next; 1e-4 is the whole-model f32 tolerance of the CPU tests, and
 # the measured maximum is printed beside it.
 GRU_ATOL_FULL, GRU_ATOL_SMALL = 1e-4, 2e-5
+# The read probe's partials: 256 bf16 values summed in f32 in another order.
+READ_ATOL, READ_RTOL = 1e-4, 1e-5
+BF16_GEMM_TOL = "one bf16 ulp (rtol 2^-7) + 2*K*2^-24*(|x|.|w|), the f32 reordering bound"
+HARNESS_TARGET_S = 0.2   # device seconds per harness measurement
 CROSS_ATTN_DIMS = dict(attention_dim=512, embedding_dim=512, hidden_dim=512)
 
 
@@ -188,13 +210,29 @@ def _call_times(fns, n_calls):
     call_ms = {name: _cuda_ms(f, n_calls) for name, f in fns.items()}
     device_ms = {}
     for name, f in fns.items():
-        with _profile() as prof:
-            for _ in range(n_calls):
-                f()
-            torch.cuda.synchronize()
-        device_ms[name] = _device_us(prof) / n_calls / 1e3
+        for _ in range(3):  # the profiler can lose a whole window's kernel records
+            with _profile() as prof:
+                for _ in range(n_calls):
+                    f()
+                torch.cuda.synchronize()
+            device_ms[name] = _device_us(prof) / n_calls / 1e3
+            if device_ms[name] > 0:
+                break
     _require(min(device_ms.values()) > 0, f"profiler saw no device time: {device_ms}")
     return device_ms, call_ms
+
+
+def _profiled_kernels_us(fn):
+    """The profiler's device µs per record of each kernel ``fn`` launches
+    (name -> [records, µs per record]) over 20 calls."""
+    fn()
+    with _profile() as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: [e.count, e.self_device_time_total / e.count]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.count}
 
 
 def _kernel_vs_plain_times(kernel, plain, args, kwargs, n_calls=500):
@@ -308,6 +346,66 @@ def _attention_modules(model):
                         fusion.multimodal_attention) if m is not None]
 
 
+def _probe_kernel_checks(dev):
+    """Phase 19: the probe kernels against their plain versions (and the
+    int8 one against ``torch._int_mm``), one launch per call."""
+    from visuelle2_tpu_torch.ops.cuda.probe_gemm import (
+        bf16_tolerance,
+        matmul_bf16,
+        matmul_bf16_plain,
+        matmul_int8,
+        matmul_int8_plain,
+    )
+    from visuelle2_tpu_torch.ops.cuda.read_reduce import read_reduce, read_reduce_plain
+    from visuelle2_tpu_torch.perf import convfloor
+
+    parity = convfloor.parity_check(dev)
+    errs = {"bf16": parity["bf16_max_abs_err"], "int8": 0, "read": parity["read_max_abs_err"]}
+    by_shape = {"jax_parity_4096x256x64": parity}
+    gemm_shapes = dict(convfloor.SHAPES, ragged_10000x128x256=dict(m=10000, k=128, n=256))
+    read_shapes = dict(convfloor.SHAPES, other_6144x384=dict(m=6144, k=384, n=64))
+    for name, s in gemm_shapes.items():
+        xb, wb, xi, wi, _ = convfloor.probe_inputs(device=dev, **s)
+        counts = matmul_bf16.launches, matmul_int8.launches
+        got, got_i = matmul_bf16(xb, wb), matmul_int8(xi, wi)
+        torch.cuda.synchronize()
+        _require((matmul_bf16.launches, matmul_int8.launches) == (counts[0] + 1, counts[1] + 1),
+                 f"{name}: launch counts did not move by one")
+        want = matmul_bf16_plain(xb, wb)
+        diff = (got.float() - want.float()).abs()
+        _require(bool((diff <= bf16_tolerance(xb, wb, want)).all()),
+                 f"{name}: bf16 probe GEMM off by {diff.max().item()}")
+        int8_plain = torch.equal(got_i, matmul_int8_plain(xi, wi))
+        int8_int_mm = torch.equal(got_i, torch._int_mm(xi, wi))
+        _require(int8_plain and int8_int_mm,
+                 f"{name}: int8 probe GEMM not exact (plain {int8_plain}, _int_mm {int8_int_mm})")
+        errs["bf16"] = max(errs["bf16"], diff.max().item())
+        by_shape[name] = {"bf16_max_abs_err": diff.max().item(),
+                          "int8_equal_plain": int8_plain, "int8_equal_int_mm": int8_int_mm}
+        del xb, wb, xi, wi, got, got_i, want, diff
+    for name, s in read_shapes.items():
+        xb, _, _, _, _ = convfloor.probe_inputs(device=dev, **s)
+        bias = torch.randn(8, 128, device=dev)
+        before = read_reduce.launches
+        full = read_reduce(xb, bias, full_k=True)
+        torch.cuda.synchronize()
+        _require(read_reduce.launches == before + 1, f"{name}: read launch count")
+        want = read_reduce_plain(xb, bias, full_k=True)
+        diff = (full - want).abs()
+        _require(bool((diff <= READ_ATOL + READ_RTOL * want.abs()).all()),
+                 f"{name}: read partials off by {diff.max().item()}")
+        past_128 = diff[:, 128:].max().item()
+        shift = (read_reduce(xb, bias) - read_reduce(xb, torch.zeros_like(bias))
+                 - bias.repeat(s["m"] // convfloor.TILE_M, 1)).abs().max().item()
+        _require(shift <= 1e-5, f"{name}: bias shift off by {shift}")
+        errs["read"] = max(errs["read"], diff.max().item())
+        by_shape.setdefault(name, {}).update({
+            "read_max_abs_err": diff.max().item(), "read_cols_past_128_max_abs_err": past_128,
+            "read_cols": s["k"], "bias_shift_max_abs_err": shift})
+        del xb, full, want, diff
+    return {"max_abs_err": errs, "by_shape": by_shape}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs on the GPU only")
@@ -333,10 +431,20 @@ def main():
         fused_gru_sequence as gru_kernel,
         fused_gru_sequence_plain as gru_plain,
     )
+    from visuelle2_tpu_torch.ops.cuda.probe_gemm import (
+        matmul_bf16,
+        matmul_bf16_plain,
+        matmul_int8,
+        matmul_int8_plain,
+    )
+    from visuelle2_tpu_torch.ops.cuda.read_reduce import read_reduce, read_reduce_plain
     from visuelle2_tpu_torch.ops.masks import gcd_block_mask
+    from visuelle2_tpu_torch.perf import convfloor, convfloor_v2
+    from visuelle2_tpu_torch.perf import roofline as harness_roofline
 
     def zero_counts():
         kernel.launches = mha.launches = additive.launches = gru_kernel.launches = 0
+        matmul_bf16.launches = matmul_int8.launches = read_reduce.launches = 0
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -489,8 +597,8 @@ def main():
     _require(max(serve_errs) <= SERVE_RTOL, f"served vs direct: {serve_errs}")
 
     # 6.–7. gated_v4 times, fused_gated_residual times ----------------------------
-    _emit({"phase": "times", **card, "model": "gated_v4",
-           **_forward_times(model, fn, host_batches, dev, seed=200)})
+    v4_times = _forward_times(model, fn, host_batches, dev, seed=200)
+    _emit({"phase": "times", **card, "model": "gated_v4", **v4_times})
     x, ctx, wx, wc, b = main_calls[1]
     with torch.inference_mode():
         device_ms, call_ms = _kernel_vs_plain_times(kernel, plain, (x, ctx, wx, wc, b), {})
@@ -789,7 +897,95 @@ def main():
            "bytes": gru_bytes, "flops": gru_flops, "bound_us": 1e3 * gru_bound_ms,
            "bound_by": gru_bound_by})
 
-    # 19. kernels line, card line, result -----------------------------------------
+    del model, fn, dev_batch, add_calls
+
+    # 19. the conv-floor probe's kernels vs their plain versions -------------------
+    probe = _probe_kernel_checks(dev)
+    _emit({"phase": "probe_kernels", **probe, "bf16_tol": BF16_GEMM_TOL,
+           "read_atol": READ_ATOL, "read_rtol": READ_RTOL})
+
+    # 20. the roofline harness's probe at both shapes: the slice's main path -------
+    zero_counts()
+    harness = {name: convfloor.measure_shape(name, target_s=HARNESS_TARGET_S, device=dev, **s)
+               for name, s in convfloor.SHAPES.items()}
+    probe_launches = {"bf16": matmul_bf16.launches, "int8": matmul_int8.launches,
+                      "read": read_reduce.launches}
+    _require(min(probe_launches.values()) > 0, f"the harness skipped a kernel: {probe_launches}")
+    _require(kernel.launches + mha.launches + additive.launches + gru_kernel.launches == 0,
+             "the harness launched a model kernel")
+    # Kernel and library times are the harness's (CUDA events around replays
+    # of a CUDA graph of calls); the plain versions' are CUDA events over 10
+    # eager calls.
+    # The profiler's device time per kernel record is printed beside them:
+    # it can drop records in a short window, so it is averaged per record.
+    probe_us, profiled_us = {}, {}
+    with torch.inference_mode():
+        for name, s in convfloor.SHAPES.items():
+            xb, wb, xi, wi, bias = convfloor.probe_inputs(device=dev, **s)
+            h = harness[name]
+            probe_us[name] = {
+                "bf16_kernel": 1e6 * h["cuda_bf16"]["secs"],
+                "bf16_library": 1e6 * h["cublas_bf16"]["secs"],
+                "int8_kernel": 1e6 * h["cuda_int8"]["secs"],
+                "int8_library": 1e6 * h["cublas_int8"]["secs"],
+                "read_kernel": 1e6 * h["read_bw"]["secs"],
+                "read_library": 1e6 * h["torch_sum_bw"]["secs"]}
+            for kind, plain_fn in (("bf16", lambda: matmul_bf16_plain(xb, wb)),
+                                   ("int8", lambda: matmul_int8_plain(xi, wi)),
+                                   ("read", lambda: read_reduce_plain(xb, bias))):
+                plain_fn()
+                probe_us[name][f"{kind}_plain"] = 1e3 * _cuda_ms(plain_fn, 10)
+            profiled_us[name] = {key: _profiled_kernels_us(fn) for key, fn in (
+                ("bf16_kernel", lambda: matmul_bf16(xb, wb)),
+                ("bf16_library", lambda: torch.matmul(xb, wb)),
+                ("int8_kernel", lambda: matmul_int8(xi, wi)),
+                ("int8_library", lambda: torch._int_mm(xi, wi)),
+                ("read_kernel", lambda: read_reduce(xb, bias)),
+                ("read_library", lambda: convfloor.torch_sum_partials(xb)))}
+            m, k, n = s["m"], s["k"], s["n"]
+            for kind, cost in (("bf16", roofline.probe_gemm_cost(m, k, n, "bf16")),
+                               ("int8", roofline.probe_gemm_cost(m, k, n, "int8")),
+                               ("read", roofline.read_reduce_cost(m, k))):
+                b_ms, b_by = roofline.bound_ms(*cost, "f32" if kind == "read" else kind)
+                probe_us[name][f"{kind}_bound"] = 1e3 * b_ms
+                probe_us[name][f"{kind}_bound_by"] = b_by
+            del xb, wb, xi, wi
+    _emit({"phase": "convfloor_times", **card, "launches": probe_launches,
+           "harness": harness, "us_per_call": probe_us,
+           "profiler_device_us_per_kernel_record": profiled_us})
+
+    # 21. the conv roofline: GEMM controls, 24 conv shapes, epilogue and chain -----
+    gemms = {n: harness_roofline.measure_gemm(n, device=dev, target_s=HARNESS_TARGET_S)
+             for n in (2048, 4096, 8192)}
+    convs = convfloor_v2.measure_convs((), ("bf16",), HARNESS_TARGET_S, device=dev)
+    weighted = convs["conv_weighted_bf16"]
+    forward_conv_ms = v4_times["forward_device_ms_by_op"]["aten::cudnn_convolution"]
+    _require(weighted["shapes_measured"] == 24, f"conv shapes measured: {weighted}")
+    _emit({"phase": "conv_roofline", **card, "batch": harness_roofline.BATCH,
+           "gemm_bf16": gemms, **convs,
+           "forward_cudnn_convolution_ms": forward_conv_ms,
+           "harness_over_forward_conv_x": weighted["sum_secs_per_batch_ms"] / forward_conv_ms,
+           "artifact_check": convfloor_v2.measure_artifact_check(HARNESS_TARGET_S, device=dev),
+           "epilogue_chain": convfloor_v2.measure_epilogue_and_chain(HARNESS_TARGET_S,
+                                                                     device=dev),
+           "method": convfloor.timing.METHOD})
+
+    # kernels line, card line, result ---------------------------------------------
+    big = max(convfloor.SHAPES, key=lambda nm: probe_us[nm]["bf16_kernel"])
+
+    def probe_row(name, kind, source, replaces, err, tol):
+        us = probe_us[big]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": f"scripts/perf_pallas_convfloor.py:{replaces}",
+                "launches": probe_launches[kind], "max_abs_err": err, **tol,
+                "shape": big, "timed_by": "CUDA events around replays of a CUDA graph of calls",
+                "ms": us[f"{kind}_kernel"] / 1e3,
+                "plain_ms": us[f"{kind}_plain"] / 1e3, "bound_ms": us[f"{kind}_bound"] / 1e3,
+                "bound_by": us[f"{kind}_bound_by"], "library_ms": us[f"{kind}_library"] / 1e3,
+                "by_shape_us": {nm: {f: v[f"{kind}_{f}"] for f in
+                                     ("kernel", "plain", "library", "bound")}
+                                for nm, v in probe_us.items()}}
+
     _emit({"kernels": [{
         "name": "fused_gated_residual", "route": "cuda",
         "source": "visuelle2_tpu_torch/csrc/gated_fusion.cu",
@@ -833,7 +1029,13 @@ def main():
         "atol": GRU_ATOL_FULL,
         "ms": gru_device_ms["kernel"], "plain_ms": gru_device_ms["plain"],
         "bound_ms": gru_bound_ms, "bound_by": gru_bound_by,
-        "library_ms": gru_device_ms["library"]}]})
+        "library_ms": gru_device_ms["library"]},
+        probe_row("probe_matmul_bf16", "bf16", "visuelle2_tpu_torch/csrc/probe_gemm.cu", 176,
+                  probe["max_abs_err"]["bf16"], {"tol": BF16_GEMM_TOL}),
+        probe_row("probe_matmul_int8", "int8", "visuelle2_tpu_torch/csrc/probe_gemm.cu", 209,
+                  probe["max_abs_err"]["int8"], {"tol": 0}),
+        probe_row("read_reduce", "read", "visuelle2_tpu_torch/csrc/read_reduce.cu", 249,
+                  probe["max_abs_err"]["read"], {"atol": READ_ATOL, "rtol": READ_RTOL})]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

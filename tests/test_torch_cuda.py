@@ -16,6 +16,8 @@ from visuelle2_tpu_torch.ops.cuda import additive_attention as taa
 from visuelle2_tpu_torch.ops.cuda import gated_fusion as tgf
 from visuelle2_tpu_torch.ops.cuda import gated_mha as tgm
 from visuelle2_tpu_torch.ops.cuda import gru_seq as tgs
+from visuelle2_tpu_torch.ops.cuda import probe_gemm as tpg
+from visuelle2_tpu_torch.ops.cuda import read_reduce as trr
 from visuelle2_tpu_torch.ops.masks import gcd_block_mask
 
 pytestmark = pytest.mark.cuda
@@ -293,3 +295,107 @@ def test_cross_attn_rnn_on_card_matches_cpu(name, launches):
         on_cpu = cpu(tb)[0]
     assert taa.fused_additive_attention.launches == before + launches
     torch.testing.assert_close(on_card, on_cpu, atol=1e-4, rtol=0)
+
+
+def _probe_inputs(m, k, n, seed=0):
+    """bf16 x, w and int8 x, w with the ±127 extremes in both."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, device="cuda", generator=gen)
+    w = torch.randn(k, n, device="cuda", generator=gen) * k ** -0.5
+    xi = torch.randint(-127, 128, (m, k), device="cuda", generator=gen, dtype=torch.int8)
+    wi = torch.randint(-127, 128, (k, n), device="cuda", generator=gen, dtype=torch.int8)
+    xi[0], wi[:, 0] = 127, -127
+    return x.to(torch.bfloat16), w.to(torch.bfloat16), xi, wi
+
+
+PROBE_SHAPES = [
+    (4096, 256, 64),      # the JAX parity check's size
+    (720896, 256, 64),    # probe shape A
+    (184320, 512, 128),   # probe shape B
+    (10000, 128, 256),    # ragged M: the last row tile is masked
+    (33, 128, 512),       # one partial tile, the widest N
+]
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_probe_gemm_bf16_matches_plain(shape):
+    """Both sides round an f32 sum of the same products to bf16 once:
+    within one bf16 ulp beyond the f32 sums' reordering bound."""
+    x, w, _, _ = _probe_inputs(*shape)
+    before = tpg.matmul_bf16.launches
+    got = tpg.matmul_bf16(x, w)
+    torch.cuda.synchronize()
+    assert tpg.matmul_bf16.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (shape[0], shape[2])
+    want = tpg.matmul_bf16_plain(x, w)
+    assert bool(((got.float() - want.float()).abs()
+                 <= tpg.bf16_tolerance(x, w, want)).all())
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_probe_gemm_int8_is_exact(shape):
+    _, _, xi, wi = _probe_inputs(*shape)
+    before = tpg.matmul_int8.launches
+    got = tpg.matmul_int8(xi, wi)
+    torch.cuda.synchronize()
+    assert tpg.matmul_int8.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tpg.matmul_int8_plain(xi, wi))
+    assert torch.equal(got, torch._int_mm(xi, wi))
+
+
+@pytest.mark.parametrize("shape", [(4096, 256), (720896, 256), (184320, 512), (6144, 384),
+                                   (2048, 128)])
+def test_read_reduce_matches_plain_over_all_columns(shape):
+    """Every column of x reaches the kernel's partials (the columns past
+    128 too); 256 bf16 values summed in f32 in another order: atol 1e-4 +
+    rtol 1e-5.  The bias reaches every one of the probe's partials."""
+    x, _, _, _ = _probe_inputs(shape[0], shape[1], 64)
+    bias = torch.randn(8, 128, device="cuda")
+    before = trr.read_reduce.launches
+    full = trr.read_reduce(x, bias, full_k=True)
+    torch.cuda.synchronize()
+    assert trr.read_reduce.launches == before + 1
+    assert full.shape == (8 * shape[0] // 2048, shape[1])
+    want = trr.read_reduce_plain(x, bias, full_k=True)
+    torch.testing.assert_close(full, want, atol=1e-4, rtol=1e-5)
+    rr, rr0 = trr.read_reduce(x, bias), trr.read_reduce(x, torch.zeros_like(bias))
+    assert rr.shape == (8 * shape[0] // 2048, 128)
+    torch.testing.assert_close(rr - rr0, bias.repeat(shape[0] // 2048, 1), atol=1e-5, rtol=0)
+
+
+def test_probe_kernels_reject_what_they_cannot_take():
+    x, w, xi, wi = _probe_inputs(4096, 256, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpg.matmul_bf16(x.t().contiguous().t(), w)
+    with pytest.raises(ValueError, match="shared memory"):
+        tpg.matmul_bf16(torch.zeros(64, 512, device="cuda", dtype=torch.bfloat16),
+                        torch.zeros(512, 512, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="int8"):
+        tpg.matmul_int8(x, wi)
+    with pytest.raises(ValueError, match="multiple of 2048"):
+        trr.read_reduce(x[:3000], torch.zeros(8, 128, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        trr.read_reduce(torch.zeros(256, 2048, device="cuda", dtype=torch.bfloat16).t(),
+                        torch.zeros(8, 128, device="cuda"))
+    with pytest.raises(ValueError, match="aligned"):  # 16-byte loads
+        tpg.matmul_bf16(x.view(-1)[1:1 + 4096 * 256 - 256].view(4095, 256), w)
+
+
+@pytest.mark.parametrize("module,call", [
+    (tpg, lambda: tpg.matmul_bf16(*_probe_inputs(256, 64, 64)[:2])),
+    (tpg, lambda: tpg.matmul_int8(*_probe_inputs(256, 128, 64)[2:])),
+    (trr, lambda: trr.read_reduce(_probe_inputs(2048, 128, 64)[0],
+                                  torch.zeros(8, 128, device="cuda"))),
+])
+def test_probe_kernels_no_fallback_without_the_kernel(monkeypatch, module, call):
+    def no_library():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(_build, "load_library", no_library)
+    module._kernel.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="unavailable"):
+            call()
+    finally:
+        module._kernel.cache_clear()

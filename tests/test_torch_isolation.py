@@ -2,6 +2,7 @@
 its entry points never run on the CPU unless asked."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -49,6 +50,10 @@ def test_importing_the_port_loads_no_jax():
         "    build(name, device='cpu', image_arch='tiny', embedding_dim=16,"
         " hidden_dim=16, **({'attention_dim': 16} if 'cross' in name else {}))\n"
         "import visuelle2_tpu_torch.ops.cuda.gru_seq\n"
+        "import visuelle2_tpu_torch.ops.cuda.probe_gemm, visuelle2_tpu_torch.ops.cuda.read_reduce\n"
+        "import visuelle2_tpu_torch.perf.timing, visuelle2_tpu_torch.perf.roofline\n"
+        "import visuelle2_tpu_torch.perf.convfloor, visuelle2_tpu_torch.perf.convfloor_v2\n"
+        "import visuelle2_tpu_torch.perf.gemm_split\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(n for n in new if n.split('.')[0] in %r)\n"
         "assert 'jax' not in sys.modules and not bad, bad\n"
@@ -70,3 +75,19 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch):
     assert next(model.parameters()).device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_forecaster(model, {"ts": torch.zeros(2, 12).numpy()})
+
+
+@pytest.mark.parametrize("module", ["roofline", "convfloor_v2", "convfloor", "gemm_split"])
+def test_harness_clis_need_cuda(module, tmp_path):
+    """``python -m visuelle2_tpu_torch.perf.<module>`` raises without a card
+    and, with no ``--out``, writes no file."""
+    code = ("import sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "import runpy\n"
+            f"sys.argv = ['{module}']\n"
+            f"runpy.run_module('visuelle2_tpu_torch.perf.{module}', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr, out.stderr[-2000:]
+    assert list(tmp_path.iterdir()) == []

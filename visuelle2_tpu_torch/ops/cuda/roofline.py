@@ -11,6 +11,8 @@ run with these functions.
 
 from __future__ import annotations
 
+from visuelle2_tpu_torch.ops.cuda.read_reduce import TILE_M
+
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {
     "f32": 67e12,     # float32 outside the tensor cores
@@ -68,3 +70,23 @@ def gru_sequence_cost(B: int, T: int, H: int):
     n_bytes = 4 * (B * T * 3 * H + 3 * H * H + 3 * H + B * H + B * T * H + B * H)
     flops = T * (2 * B * H * 3 * H + 10 * B * H)
     return n_bytes, flops
+
+
+def probe_gemm_cost(m: int, k: int, n: int, kind: str):
+    """The conv-floor probe GEMMs: x [m, k] · w [k, n].  ``kind`` "bf16":
+    bf16 in and out (f32 sums inside); "int8": int8 in, int32 out.  FLOPs
+    2 per multiply-add, at the tensor cores' rate for ``kind``."""
+    if kind == "bf16":
+        n_bytes = 2 * (m * k + k * n + m * n)
+    elif kind == "int8":
+        n_bytes = m * k + k * n + 4 * m * n
+    else:
+        raise ValueError(f"kind is 'bf16' or 'int8', not {kind!r}")
+    return n_bytes, 2 * m * k * n
+
+
+def read_reduce_cost(m: int, k: int):
+    """The conv-floor read probe: x [m, k] bf16 read once, one (8, 128) f32
+    partial written per 2048-row tile, one f32 add per element of x."""
+    n_bytes = 2 * m * k + 4 * 8 * 128 * (m // TILE_M)
+    return n_bytes, m * k
