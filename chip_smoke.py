@@ -44,9 +44,13 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    at the three CrossAttnRNN Demand shapes (B=128, De=Dd=A=512, L = 100
    image patches, 52 trend steps, 4 fused tokens), a ragged one (B=37, L=13,
    De=48, Dd=40, A=24) and L=2;
-12. gru_kernel — ``fused_gru_sequence`` against its plain step loop and
-   cuDNN's ``torch.nn.GRU`` at the trend GRU's shape (B=128, T=52, I=3,
-   H=512; atol 1e-4) and at a ragged small one (atol 2e-5);
+12. gru_kernel — ``fused_gru_sequence`` (one persistent launch per call)
+   against its plain step loop and cuDNN's ``torch.nn.GRU`` at the trend
+   GRU's shape (B=128, T=52, I=3, H=512; atol 1e-4), at ragged small ones
+   (B and H not multiples of the 32-row tile and the 16-unit slice; atol
+   2e-5) and at ten row tiles on four row groups (B=300, H=512; atol 1e-4);
+   at each, a second call on the same inputs gives the same bits (the sums
+   take no atomics: a difference is a race in the step barrier);
 13. forward_demand — the full-width CrossAttnRNN Demand forecaster
    (ResNet-101 at 299², bf16 backbone, E=A=H=512, B=128, random weights from
    a seeded generator) through ``make_forecaster``: finite [128, 12, 1]
@@ -66,8 +70,9 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    and the plain version's device time per launch and time per call,
    launches per forward, and the bound;
 18. gru_kernel_times — at the trend GRU's shape, the device time per call
-   and time per call of the kernel path (input GEMM and the 52 step
-   launches), of its plain version and of ``torch.nn.GRU``, and the bound;
+   and time per call of the kernel path (input GEMM and the one recurrence
+   launch), the recurrence kernel's own device time, of its plain version
+   and of ``torch.nn.GRU``, and the bound;
 19. probe_kernels — the conv-floor probe's three kernels (``matmul_bf16``,
    ``matmul_int8``, ``read_reduce``) against their plain versions: the JAX
    parity check's size and seed (``perf.convfloor.parity_check``), both
@@ -127,6 +132,7 @@ N_FWD = 3                   # forwards of each main-path run
 GRU_ATOL_FULL, GRU_ATOL_SMALL = 1e-4, 2e-5
 # The read probe's partials: 256 bf16 values summed in f32 in another order.
 READ_ATOL, READ_RTOL = 1e-4, 1e-5
+GRU_KERNEL_NAME = "gru_persistent_f32_kernel"  # csrc/gru_seq.cu, as the profiler names it
 BF16_GEMM_TOL = "one bf16 ulp (rtol 2^-7) + 2*K*2^-24*(|x|.|w|), the f32 reordering bound"
 HARNESS_TARGET_S = 0.2   # device seconds per harness measurement
 CROSS_ATTN_DIMS = dict(attention_dim=512, embedding_dim=512, hidden_dim=512)
@@ -204,19 +210,27 @@ def _gated_mha_modules(model):
 
 def _call_times(fns, n_calls):
     """Device ms per call (profiler) and ms per call from Python (CUDA
-    events) of each zero-argument callable in ``fns``."""
+    events) of each zero-argument callable in ``fns``.  The profiler can drop
+    records in a window, so a call's device time is, over the kernels it
+    launches, each kernel's µs per record times its records per call; a
+    window whose record counts are not whole multiples of ``n_calls`` is
+    taken again, up to three times."""
     for f in fns.values():
         f()
     call_ms = {name: _cuda_ms(f, n_calls) for name, f in fns.items()}
     device_ms = {}
     for name, f in fns.items():
-        for _ in range(3):  # the profiler can lose a whole window's kernel records
+        for _ in range(3):
             with _profile() as prof:
                 for _ in range(n_calls):
                     f()
                 torch.cuda.synchronize()
-            device_ms[name] = _device_us(prof) / n_calls / 1e3
-            if device_ms[name] > 0:
+            records = [(e.count, e.self_device_time_total) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                       and e.count]
+            device_ms[name] = sum(max(1, round(n / n_calls)) * us / n
+                                  for n, us in records) / 1e3
+            if records and all(n % n_calls == 0 for n, _ in records):
                 break
     _require(min(device_ms.values()) > 0, f"profiler saw no device time: {device_ms}")
     return device_ms, call_ms
@@ -722,13 +736,16 @@ def main():
 
     # 12. GRU sequence vs plain and cuDNN ---------------------------------------------
     gru_errs = {}
-    for (Bk, T, I, H), atol in (((B, 52, 3, 512), GRU_ATOL_FULL), ((37, 9, 5, 24), GRU_ATOL_SMALL)):
+    for (Bk, T, I, H), atol in (((B, 52, 3, 512), GRU_ATOL_FULL), ((37, 9, 5, 24), GRU_ATOL_SMALL),
+                                ((150, 6, 4, 200), GRU_ATOL_SMALL),
+                                ((300, 4, 3, 512), GRU_ATOL_FULL)):
         bound = H ** -0.5
         x = torch.rand(Bk, T, I, device=dev, generator=gen)
         w = [(torch.rand(*shape, device=dev, generator=gen) * 2 - 1) * bound
              for shape in ((I, 3 * H), (H, 3 * H), (3 * H,), (3 * H,))]
         h0 = torch.randn(Bk, H, device=dev, generator=gen) * 0.5
         outs, h_last = gru_kernel(x, *w, h0)
+        again, again_h = gru_kernel(x, *w, h0)
         want, want_h = gru_plain(x, *w, h0)
         library = cudnn_gru(*w)
         with torch.inference_mode():
@@ -740,9 +757,12 @@ def main():
                             (h_last - want_h).abs().max().item()),
             "vs_cudnn": max((outs - lib).abs().max().item(),
                             (h_last - lib_h[0]).abs().max().item()),
-            "atol": atol}
+            "atol": atol,
+            "second_call_bit_identical": torch.equal(outs, again) and torch.equal(h_last, again_h)}
         _require(max(gru_errs[key]["vs_plain"], gru_errs[key]["vs_cudnn"]) <= atol,
                  f"GRU kernel disagrees at {key}: {gru_errs[key]}")
+        _require(gru_errs[key]["second_call_bit_identical"],
+                 f"GRU kernel: two calls on the same inputs differ at {key}")
     _emit({"phase": "gru_kernel", "max_abs_err": gru_errs})
 
     # 13. full-width CrossAttnRNN Demand through the serving callable --------------
@@ -878,8 +898,12 @@ def main():
             for _ in range(20):
                 gru_kernel(gru_x, *gru_w)
             torch.cuda.synchronize()
-    steps_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and "gru_step" in e.key) / 20
+    recurrence = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and GRU_KERNEL_NAME in e.key and e.count]
+    _require(recurrence, f"the profiler saw no {GRU_KERNEL_NAME} kernel")
+    # Per kernel record: the profiler can drop records in a short window.
+    steps_us = (sum(e.self_device_time_total for e in recurrence)
+                / sum(e.count for e in recurrence))
     Bg, Tg, _ = gru_x.shape
     Hg = trend_gru.hidden_dim
     gru_bytes, gru_flops = roofline.gru_sequence_cost(Bg, Tg, Hg)
@@ -888,6 +912,7 @@ def main():
            "shape": {"B": Bg, "T": Tg, "I": gru_x.shape[2], "H": Hg},
            "kernel_device_us": 1e3 * gru_device_ms["kernel"],
            "kernel_recurrence_device_us": steps_us,
+           "kernel_recurrence_records": sum(e.count for e in recurrence),
            "plain_device_us": 1e3 * gru_device_ms["plain"],
            "library_device_us": 1e3 * gru_device_ms["library"],
            "kernel_call_us": 1e3 * gru_call_ms["kernel"],
@@ -1030,7 +1055,7 @@ def main():
         "ms": gru_device_ms["kernel"], "plain_ms": gru_device_ms["plain"],
         "bound_ms": gru_bound_ms, "bound_by": gru_bound_by,
         "library_ms": gru_device_ms["library"]},
-        probe_row("probe_matmul_bf16", "bf16", "visuelle2_tpu_torch/csrc/probe_gemm.cu", 176,
+        probe_row("probe_matmul_bf16", "bf16", "visuelle2_tpu_torch/csrc/probe_gemm_bf16.cu", 176,
                   probe["max_abs_err"]["bf16"], {"tol": BF16_GEMM_TOL}),
         probe_row("probe_matmul_int8", "int8", "visuelle2_tpu_torch/csrc/probe_gemm.cu", 209,
                   probe["max_abs_err"]["int8"], {"tol": 0}),

@@ -230,7 +230,14 @@ def _gru_inputs(B, T, I, H, seed=0):
                                         # static + dynamic shared memory over 48 KB,
                                         # the dynamic part under it
                                         ((9, 6, 3, 200), 2e-5),
-                                        ((128, 52, 3, 512), 1e-4)])
+                                        ((128, 52, 3, 512), 1e-4),
+                                        ((7, 1, 3, 40), 2e-5),  # one step: no barrier
+                                        # B not a multiple of the 32-row tile, H not
+                                        # of the 16-unit slice; 13 slices x 5 tiles
+                                        ((150, 6, 4, 200), 2e-5),
+                                        # ten row tiles on four row groups: a block
+                                        # walks over several tiles a step
+                                        ((300, 4, 3, 512), 1e-4)])
 def test_gru_kernel_matches_plain_and_cudnn(shape, atol):
     """The recurrence kernel against the plain step loop and cuDNN's
     torch.nn.GRU (same weights, transposed).  At full width 52 steps of
@@ -250,6 +257,62 @@ def test_gru_kernel_matches_plain_and_cudnn(shape, atol):
         lib, lib_h = ref(x)
     torch.testing.assert_close(outs, lib, atol=atol, rtol=0)
     torch.testing.assert_close(h_last, lib_h[0], atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(128, 52, 3, 512), (37, 9, 5, 24), (300, 4, 3, 512)])
+def test_gru_kernel_gives_the_same_bits_twice(shape):
+    """The sums take no atomics and each has one order, so any difference
+    between two calls on the same inputs is a race in the step barrier."""
+    args = _gru_inputs(*shape)
+    h0 = torch.randn(shape[0], shape[3], device="cuda")
+    first = tgs.fused_gru_sequence(*args, h0=h0)
+    second = tgs.fused_gru_sequence(*args, h0=h0)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_gru_kernel_in_a_cuda_graph_matches_eager():
+    """Captured in a CUDA graph (the barrier's counters zeroed by a memset
+    node of the graph), replayed twice on new inputs: equal to eager."""
+    x, w_i, w_h, b_i, b_h = _gru_inputs(128, 52, 3, 512)
+    static_x = x.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tgs.fused_gru_sequence(static_x, w_i, w_h, b_i, b_h)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs, h_last = tgs.fused_gru_sequence(static_x, w_i, w_h, b_i, b_h)
+    for seed in (1, 2):
+        new_x = _gru_inputs(128, 52, 3, 512, seed=seed)[0]
+        static_x.copy_(new_x)
+        graph.replay()
+        want, want_h = tgs.fused_gru_sequence(new_x, w_i, w_h, b_i, b_h)
+        torch.cuda.synchronize()
+        assert torch.equal(outs, want) and torch.equal(h_last, want_h)
+
+
+def test_gru_kernel_on_two_streams_at_once():
+    """Calls in flight on two streams at once, each grid nearly a whole card
+    of blocks that meet at a barrier: the cooperative launch makes each grid
+    resident as a whole or not at all, so no block spins waiting for one
+    that has no SM.  Each stream's results equal the calls made alone."""
+    inputs = [_gru_inputs(128, 52, 3, 512, seed=3), _gru_inputs(300, 4, 3, 512, seed=4)]
+    want = [tgs.fused_gru_sequence(*a) for a in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[] for _ in inputs]
+    for _ in range(4):
+        for s, a, g in zip(streams, inputs, got):
+            with torch.cuda.stream(s):
+                g.append(tgs.fused_gru_sequence(*a))
+    torch.cuda.synchronize()
+    for (outs, h_last), calls in zip(want, got):
+        for o, h in calls:
+            assert torch.equal(o, outs) and torch.equal(h, h_last)
 
 
 def test_gru_module_kernel_path_on_card():
@@ -327,6 +390,22 @@ def test_probe_gemm_bf16_matches_plain(shape):
     torch.cuda.synchronize()
     assert tpg.matmul_bf16.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (shape[0], shape[2])
+    want = tpg.matmul_bf16_plain(x, w)
+    assert bool(((got.float() - want.float()).abs()
+                 <= tpg.bf16_tolerance(x, w, want)).all())
+
+
+@pytest.mark.parametrize("n,k", [(64, 128), (128, 128), (256, 256), (512, 192)])
+def test_probe_gemm_bf16_every_n_at_a_ragged_m(n, k):
+    """Every N the wgmma kernel takes (at 512 each consumer warpgroup takes
+    half of the columns of a 64-row tile), at an M that leaves a ragged last
+    tile after several tiles per block of the persistent grid."""
+    m = 3 * 128 * 132 + 77
+    x, w, _, _ = _probe_inputs(m, k, n, seed=n)
+    before = tpg.matmul_bf16.launches
+    got = tpg.matmul_bf16(x, w)
+    torch.cuda.synchronize()
+    assert tpg.matmul_bf16.launches == before + 1
     want = tpg.matmul_bf16_plain(x, w)
     assert bool(((got.float() - want.float()).abs()
                  <= tpg.bf16_tolerance(x, w, want)).all())

@@ -22,6 +22,7 @@ from visuelle2_tpu_torch.convert import load_jax_variables
 from visuelle2_tpu_torch.ops import gru as tgru
 from visuelle2_tpu_torch.ops.cuda import gru_seq as tgs
 from visuelle2_tpu_torch.ops.cuda import roofline
+from visuelle2_tpu_torch.perf import gru_split
 
 ATOL = 1e-5
 
@@ -87,9 +88,11 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(rng, bad):
     elif bad == "mixed_device":
         args[2] = args[2].to("meta")
     elif bad == "smem":
-        # 32 rows of H + 4 floats: H = 2048 takes 262,656 bytes of the
-        # 232,448 a Hopper block may use.
-        args = _wrapper_args(rng, B=1, T=1, I=1, H=2048)
+        # The W_h slice (48 columns of H) and the h tile (32 rows of H + 4):
+        # H = 2048 takes 655,872 bytes of the 232,448 a Hopper block may use.
+        # The limit is the kernel's, checked off the CPU (the plain CPU path
+        # takes any H), so the inputs lie on the meta device.
+        args = [a.to("meta") for a in _wrapper_args(rng, B=1, T=1, I=1, H=2048)]
     elif bad == "w_i_shape":
         args[1] = args[1][:, 1:].contiguous()
     elif bad == "h0_shape":
@@ -116,3 +119,40 @@ def test_gru_sequence_bound_from_shapes():
     assert (n_bytes, flops) == (58_202_112, 10_503_061_504)
     ms, by = roofline.bound_ms(n_bytes, flops)
     assert by == "operations" and round(1e3 * ms, 1) == 156.8
+
+
+def test_persistent_kernel_shared_memory_and_its_hidden_limit(rng):
+    """A block keeps its W_h slice and one h tile in shared memory for the
+    whole sequence: 164,352 bytes at H = 512; H = 724 is the widest that
+    fits the 232,448 bytes of a Hopper block, and the wrapper says so off the
+    CPU.  The plain CPU path keeps taking any H."""
+    assert tgs.smem_bytes(512) == 4 * (48 * 512 + 32 * 516) == 164_352
+    assert tgs.MAX_HIDDEN == 724
+    assert tgs.smem_bytes(724) <= 232_448 < tgs.smem_bytes(725)
+    assert tgs.smem_bytes(13) == tgs.smem_bytes(16)  # k padded to 4
+    for H in (724, 725):
+        args = _wrapper_args(rng, B=2, T=1, I=2, H=H)
+        outs, h_last = tgs.fused_gru_sequence(*args)
+        assert outs.shape == (2, 1, H) and torch.equal(outs[:, 0], h_last)
+        want, _ = tgs.fused_gru_sequence_plain(*args)
+        torch.testing.assert_close(outs, want, atol=0, rtol=0)
+    meta = lambda H: [a.to("meta") for a in _wrapper_args(rng, B=2, T=1, I=2, H=H)]
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        tgs.fused_gru_sequence(*meta(724))
+    with pytest.raises(ValueError, match="H <= 724"):
+        tgs.fused_gru_sequence(*meta(725))
+
+
+def test_gru_split_variants_apply_to_the_kernel_source():
+    """Each variant of ``perf/gru_split.py`` removes its part from the
+    current kernel source, and raises when a line it replaces is gone."""
+    text = gru_split.SOURCE.read_text()
+    variants = gru_split.variant_sources(text)
+    assert variants["whole"] == text
+    assert "while (false && load_acquire" in variants["no_barrier"]
+    assert "red.release.gpu" in variants["no_barrier"]  # the blocks still arrive
+    assert "false ? __ldcg(reinterpret_cast<const float4*>" in variants["no_h_loads"]
+    assert "w4[(q * 3 + g)" not in variants["no_w_loads"]
+    assert "q < 0; ++q" in variants["no_products"]
+    with pytest.raises(RuntimeError, match="is not in gru_seq.cu"):
+        gru_split.variant_sources(text.replace("for (int q = 0; q < nq; ++q) {", ""))

@@ -258,12 +258,58 @@ def test_clis_write_only_where_told(tmp_path, monkeypatch):
 
 
 def test_gemm_split_variants_apply_to_the_kernel_source():
-    """Each variant removes its part from the current kernel source."""
-    text = gemm_split.SOURCE.read_text()
-    variants = gemm_split.variant_sources(text)
-    assert variants["whole"] == text
+    """Each variant removes its part from the current kernel sources: the
+    bf16 TMA/wgmma kernel's and the int8 mma.sync kernel's."""
+    int8_text = gemm_split.SOURCES["int8"].read_text()
+    variants = gemm_split.variant_sources("int8", int8_text)
+    assert variants["whole"] == int8_text
     assert "mma(acc" not in variants["no_products"]
     assert "load_chunk(c +" not in variants["no_x_loads"]
     assert variants["no_fragment_loads"].count("if (0) ldmatrix_x4") == 2
     with pytest.raises(RuntimeError, match="is not in"):
-        gemm_split.variant_sources(text.replace("load_chunk(s);", "load(s);"))
+        gemm_split.variant_sources("int8", int8_text.replace("load_chunk(s);", "load(s);"))
+    bf16_text = gemm_split.SOURCES["bf16"].read_text()
+    variants = gemm_split.variant_sources("bf16", bf16_text)
+    assert variants["whole"] == bf16_text
+    assert "wgmma_tile<NW>(acc" not in variants["no_wgmma"]
+    assert "tma_load_2d(&x_map" not in variants["no_x_loads"]
+    assert "expect_tx(full_bar" not in variants["no_x_loads"]
+    assert "tma_load_2d(&w_map" in variants["no_x_loads"]  # w still arrives
+    assert variants["no_stores"].count("w[0] == 0x12345u) *reinterpret_cast") == 1
+
+
+@pytest.mark.parametrize("line", [
+    "wgmma_tile<NW>(acc, a_desc + 2 * kk, b_desc + 128 * kk, kc | kk);",
+    "mbar_arrive_expect_tx(full_bar, kStageBytes);",
+])
+def test_gemm_split_raises_when_a_bf16_line_is_gone(line):
+    text = gemm_split.SOURCES["bf16"].read_text()
+    assert line in text
+    with pytest.raises(RuntimeError, match="is not in probe_gemm_bf16.cu"):
+        gemm_split.variant_sources("bf16", text.replace(line, ""))
+
+
+@pytest.mark.parametrize("esize,n,k_max", [
+    (2, 64, 1536), (2, 128, 768), (2, 256, 384), (2, 512, 192),
+    (1, 64, 1536), (1, 128, 1280), (1, 256, 768), (1, 512, 384),
+])
+def test_gemm_shared_memory_bounds_k_as_the_docstring_says(esize, n, k_max):
+    """w stays whole in a block's shared memory beside the x ring, so K has
+    a ceiling for each N, the one the module's docstring states."""
+    step = 128 // esize
+    assert probe_gemm.smem_bytes(k_max, n, esize) <= 232448
+    assert probe_gemm.smem_bytes(k_max + step, n, esize) > 232448
+    assert f"{k_max}" in probe_gemm.__doc__
+
+
+def test_bf16_ring_depth_and_tile_rows():
+    """Eight stages of 16 KB beside w at shape A, six at shape B; 64-row
+    tiles of 8 KB at N = 512; fewer than two stages do not fit."""
+    assert [probe_gemm.bf16_tile_rows(n) for n in (64, 128, 256, 512)] == [128, 128, 128, 64]
+    assert probe_gemm.bf16_stages(256, 64) == 8
+    assert probe_gemm.smem_bytes(256, 64, 2) == 1280 + 256 * 64 * 2 + 8 * 128 * 128
+    assert probe_gemm.bf16_stages(512, 128) == 6
+    assert probe_gemm.smem_bytes(512, 128, 2) == 1280 + 512 * 128 * 2 + 6 * 128 * 128
+    assert probe_gemm.bf16_stages(192, 512) == 4 and probe_gemm.bf16_stages(256, 512) < 2
+    # A shape with room for fewer than two stages is sized at two: past 227 KB.
+    assert probe_gemm.smem_bytes(256, 512, 2) == 1280 + 256 * 512 * 2 + 2 * 64 * 128 > 232448

@@ -1,45 +1,40 @@
-// The conv-floor probe GEMMs, for Hopper (sm_90a): x [M, K] · w [K, N].
+// The conv-floor probe's int8 GEMM for Hopper (sm_90a): x [M, K] · w [K, N].
 //
-// Replaces scripts/perf_pallas_convfloor.py::_pallas_matmul (bf16 in, f32
-// sums, bf16 out) and ::_pallas_matmul_int8 (int8 in, exact int32 out).
-// x, w and out are row-major and contiguous.
+// Replaces scripts/perf_pallas_convfloor.py::_pallas_matmul_int8 (int8 in,
+// exact int32 out).  x, w and out are row-major and contiguous.  The bf16
+// probe GEMM (::_pallas_matmul) has its own TMA and wgmma kernel,
+// probe_gemm_bf16.cu.
 //
 // What bounds it.  The probe shapes are narrow: A = 720896 x 256 -> 64 and
-// B = 184320 x 512 -> 128.  In bf16 they do about 51 (A) and 102 (B)
-// operations per byte of device memory, below the H100's ~295 at which the
-// tensor cores and not HBM set the pace; in int8 the ratio is lower still.
-// So the call is bound by streaming x through HBM once: 137.7 / 70.5 us in
-// bf16 and 110.2 / 56.4 us in int8 at 3.35 TB/s (ops/cuda/roofline.py).
+// B = 184320 x 512 -> 128.  In int8 they do about 64 (A) and 128 (B)
+// operations per byte of device memory, far below the H100's ~590 at which
+// the int8 tensor cores and not HBM set the pace.  So the call is bound by
+// streaming x through HBM once: 110.2 / 56.4 us at 3.35 TB/s
+// (ops/cuda/roofline.py).
 //
-// The design follows the Pallas kernel's idea, not its blocks.  w (32 KB or
-// 128 KB in bf16, 16 KB or 64 KB in int8) is staged once per block in
-// shared memory, the counterpart of the VMEM-resident weight; each block
-// then walks over row tiles of x, blockIdx.x, blockIdx.x + gridDim.x, ...,
-// with as many blocks as fit on the card at once.  x arrives in chunks of
-// BM rows x 128 bytes (64 bf16 or 128 int8 columns) through a ring of
-// STAGES chunks filled by cp.async, so STAGES - 1 chunks are in flight
-// while the tensor cores work on one; rows past M are zero-filled, so a
-// ragged M needs no padding copy.
+// The design follows the Pallas kernel's idea, not its blocks.  w (16 KB or
+// 64 KB) is staged once per block in shared memory, the counterpart of the
+// VMEM-resident weight; each block then walks over row tiles of x,
+// blockIdx.x, blockIdx.x + gridDim.x, ..., with as many blocks as fit on the
+// card at once.  x arrives in chunks of BM rows x 128 bytes (128 int8
+// columns) through a ring of STAGES chunks filled by cp.async, so STAGES - 1
+// chunks are in flight while the tensor cores work on one; rows past M are
+// zero-filled, so a ragged M needs no padding copy.
 //
-// Products run on the tensor cores through mma.sync: m16n8k16 bf16 with f32
-// sums, m16n8k32 s8 with s32 sums; both take 32 bytes of k per step, so one
-// loop serves both types.  Eight warps cover the block's BM x N output tile
-// in warp tiles of 32 rows x 64 columns (2 x 8 mma tiles, 64 accumulator
-// registers), so BM = 32 * 8 / (N / 64).  Fragments come from shared memory
-// by ldmatrix: x's chunk is kept row-major, w transposed to [N][K] when it
-// is staged (the "col" operand of mma.sync, k contiguous, the same for both
-// types).  In both, the eight 16-byte pieces of each 128-byte run of a row
-// are stored XOR-swizzled by the row's low three bits, so the eight rows one
-// ldmatrix phase reads fall in distinct banks.  The epilogue rounds the
-// accumulators in registers (bf16: round to nearest even, as torch's
-// .to(bfloat16)) and stores them, masking rows past M.  wgmma, TMA and a
-// persistent grid are later work.
+// Products run on the tensor cores through mma.sync m16n8k32 s8 with s32
+// sums, 32 bytes of k per step.  Eight warps cover the block's BM x N output
+// tile in warp tiles of 32 rows x 64 columns (2 x 8 mma tiles, 64
+// accumulator registers), so BM = 32 * 8 / (N / 64).  Fragments come from
+// shared memory by ldmatrix: x's chunk is kept row-major, w transposed to
+// [N][K] when it is staged (the "col" operand of mma.sync, k contiguous).
+// The eight 16-byte pieces of each 128-byte run of a row are stored
+// XOR-swizzled by the row's low three bits, so the eight rows one ldmatrix
+// phase reads fall in distinct banks.  The epilogue stores the accumulators
+// from registers, masking rows past M.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -69,13 +64,6 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned* r, const unsigned char* sm
                : "r"(addr));
 }
 
-__device__ __forceinline__ void mma(float* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 __device__ __forceinline__ void mma(int* c, const unsigned* a, const unsigned* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
@@ -90,24 +78,18 @@ __device__ __forceinline__ int swizzled(int row, int seg) {
   return ((seg & ~7) | ((seg ^ row) & 7)) << 4;
 }
 
-__device__ __forceinline__ void store_pair(__nv_bfloat16* out, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
-}
 __device__ __forceinline__ void store_pair(int* out, int a, int b) {
   *reinterpret_cast<int2*>(out) = make_int2(a, b);
 }
 
-// TIn: __nv_bfloat16 or int8_t; TAcc: float or int; TOut: bf16 or int.
-template <typename TIn, typename TAcc, typename TOut>
 __global__ void __launch_bounds__(kThreads, 1)
-    probe_gemm_kernel(const TIn* __restrict__ x, const TIn* __restrict__ w,
-                      TOut* __restrict__ out, int M, int K, int N) {
-  constexpr int esize = sizeof(TIn);
+    probe_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                      int* __restrict__ out, int M, int K, int N) {
   extern __shared__ __align__(128) unsigned char smem[];
 
   const int col_groups = N / kWarpCols;          // 1, 2, 4 or 8
   const int BM = kWarpRows * (kWarps / col_groups);
-  const int row_bytes = K * esize;               // of x, and of w transposed
+  const int row_bytes = K;                       // of x, and of w transposed
   const int n_kc = row_bytes / kChunkBytes;      // chunks per row tile
   const int stage_bytes = BM * kChunkBytes;
   unsigned char* wt_s = smem;                    // w transposed: [N][row_bytes]
@@ -141,35 +123,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // w, transposed into shared memory while the first chunks are in flight.
-  // Each thread builds 16-byte pieces of a row n of w transposed (16 / esize
+  // Each thread builds 16-byte pieces of a row n of w transposed (16
   // consecutive k) and stores each whole: neighbouring threads take
   // neighbouring n, so each of their loads reads one run of a row of w, and
   // the swizzle spreads eight rows' stores over distinct banks.
   {
-    using Raw = typename std::conditional<esize == 2, uint16_t, uint8_t>::type;
-    constexpr int per_piece = 16 / esize;
-    const Raw* w_raw = reinterpret_cast<const Raw*>(w);
+    const uint8_t* w_raw = reinterpret_cast<const uint8_t*>(w);
 #pragma unroll 2
     for (int q = threadIdx.x; q < N * (row_bytes / 16); q += kThreads) {
       const int n = q % N, seg = q / N;
       unsigned words[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int j = 0; j < per_piece; ++j)
-        words[j * esize / 4] |= unsigned(w_raw[(long long)(seg * per_piece + j) * N + n])
-                                << (j * esize % 4 * 8);
+      for (int j = 0; j < 16; ++j)
+        words[j / 4] |= unsigned(w_raw[(long long)(seg * 16 + j) * N + n]) << (j % 4 * 8);
       *reinterpret_cast<uint4*>(wt_s + n * row_bytes + swizzled(n, seg)) =
           make_uint4(words[0], words[1], words[2], words[3]);
     }
   }
 
   const int wr = warp / col_groups, wc = warp % col_groups;
-  TAcc acc[2][8][4];
+  int acc[2][8][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = TAcc(0);
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
   // ldmatrix addresses: for x, lane l reads row l % 16 of the m16 tile, at
   // the step's first or second 16 bytes (l / 16); for w transposed, lane l
@@ -220,17 +199,22 @@ __global__ void __launch_bounds__(kThreads, 1)
               store_pair(out + grow * N + col0 + j * 8, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
           }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j][2 * h] = acc[i][j][2 * h + 1] = TAcc(0);
+          for (int j = 0; j < 8; ++j) acc[i][j][2 * h] = acc[i][j][2 * h + 1] = 0;
         }
     }
   }
   cp_async_wait<0>();
 }
 
-template <typename TIn, typename TAcc, typename TOut>
-int launch(const void* x, const void* w, void* out, int M, int K, int N, int smem_bytes,
-           void* stream) {
-  auto kernel = probe_gemm_kernel<TIn, TAcc, TOut>;
+}  // namespace
+
+// x [M, K], w [K, N] -> out [M, N]; returns cudaGetLastError() (0 on
+// success).  The caller has checked dtypes, devices, contiguity, M >= 1,
+// N in {64, 128, 256, 512}, K a multiple of 128 and `smem_bytes` =
+// K * N + 4 * BM * 128 <= 232448 (ops/cuda/probe_gemm.py::smem_bytes).
+extern "C" int v2t_probe_matmul_int8(const void* x, const void* w, void* out, int M, int K,
+                                     int N, int smem_bytes, void* stream) {
+  auto kernel = probe_gemm_kernel;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -245,23 +229,6 @@ int launch(const void* x, const void* w, void* out, int M, int K, int N, int sme
   const int n_tiles = (M + BM - 1) / BM;
   const int grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
   kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const TIn*)x, (const TIn*)w, (TOut*)out, M, K, N);
+      (const int8_t*)x, (const int8_t*)w, (int*)out, M, K, N);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// x [M, K], w [K, N] -> out [M, N]; returns cudaGetLastError() (0 on
-// success).  The caller has checked dtypes, devices, contiguity, M >= 1,
-// N in {64, 128, 256, 512}, K a multiple of 64 (bf16) or 128 (int8) and
-// `smem_bytes` = K * N * esize + 4 * BM * 128 <= 232448
-// (ops/cuda/probe_gemm.py::smem_bytes).
-extern "C" int v2t_probe_matmul_bf16(const void* x, const void* w, void* out, int M, int K,
-                                     int N, int smem_bytes, void* stream) {
-  return launch<__nv_bfloat16, float, __nv_bfloat16>(x, w, out, M, K, N, smem_bytes, stream);
-}
-
-extern "C" int v2t_probe_matmul_int8(const void* x, const void* w, void* out, int M, int K,
-                                     int N, int smem_bytes, void* stream) {
-  return launch<int8_t, int, int>(x, w, out, M, K, N, smem_bytes, stream);
 }

@@ -7,12 +7,16 @@ None) -> (outs [B, T, H], h_T [B, H]), gate order (r, z, n), float32 only.
 As in the JAX wrapper, the input projection ``gi = x @ W_i + b_i`` is one
 ``torch.matmul`` before the kernel, which runs only the recurrence.
 
-The kernel is ``csrc/gru_seq.cu`` (its note gives the bound and the design).
-``fused_gru_sequence`` checks its inputs the same way on every device, takes
-the plain version (the step loop of ``ops/gru.py``) only for tensors on the
-CPU, and for CUDA tensors launches the kernel or raises — there is no
-fallback.  ``fused_gru_sequence.launches`` counts the calls that launched the
-kernel (one call issues its T step launches on the stream).
+The kernel is ``csrc/gru_seq.cu`` (its note gives the bound and the design):
+one persistent launch whose blocks each keep a slice of W_h in shared memory
+for all T steps.  It takes any B >= 1, T >= 1 and I, and H up to
+``MAX_HIDDEN`` (724), where a block's W_h slice and h tile pass the 227 KB of
+shared memory a block may use; every GRU of the port (H <= 512) fits.
+``fused_gru_sequence`` checks its inputs the same way on every device and
+takes the plain version (the step loop of ``ops/gru.py``, any H) only for
+tensors on the CPU; off the CPU it also holds H to the kernel's limit, and
+for CUDA tensors it launches the kernel or raises — there is no fallback.  ``fused_gru_sequence.launches`` counts the calls that launched the
+kernel (one launch each, after the input GEMM).
 """
 
 from __future__ import annotations
@@ -26,8 +30,7 @@ from visuelle2_tpu_torch.ops.cuda import _build
 from visuelle2_tpu_torch.ops.gru import gru_sequence
 
 _MAX_SMEM_BYTES = 232448  # 227 KB: what one Hopper block may use
-_ROWS_PER_BLOCK, _KC = 32, 64  # csrc/gru_seq.cu: the launched tile's rows, slice depth
-_STATIC_SMEM_BYTES = 4 * _KC * 3 * 16  # csrc/gru_seq.cu: one W_h slice
+_UNITS, _ROWS = 16, 32  # csrc/gru_seq.cu: a block's hidden units, a row tile's rows
 
 
 # The step loop of ``ops/gru.py``: the CPU path and the kernel's reference.
@@ -47,9 +50,15 @@ def cudnn_gru(w_i, w_h, b_i, b_h) -> torch.nn.GRU:
     return gru.eval()
 
 
-def _smem_bytes(H: int) -> int:
-    """Dynamic shared memory of one block; layout in csrc/gru_seq.cu."""
-    return 4 * _ROWS_PER_BLOCK * (_KC * -(-H // _KC) + 4)
+def smem_bytes(H: int) -> int:
+    """Dynamic shared memory of one block; layout in csrc/gru_seq.cu: the
+    W_h slice (3 gates x 16 units x H, k padded to 4) and the h tile (32
+    rows of H padded to 4, plus 4)."""
+    h4 = 4 * -(-H // 4)
+    return 4 * (3 * _UNITS * h4 + _ROWS * (h4 + 4))
+
+
+MAX_HIDDEN = max(h for h in range(1, 1024) if smem_bytes(h) <= _MAX_SMEM_BYTES)
 
 
 def _validate(named) -> None:
@@ -75,17 +84,13 @@ def _validate(named) -> None:
     for name, t in named.items():
         if not t.is_contiguous():
             raise ValueError(f"fused_gru_sequence needs contiguous inputs; {name} is not")
-    smem = _smem_bytes(H) + _STATIC_SMEM_BYTES
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"H={H} needs {smem} bytes of shared memory per block, more "
-                         f"than the {_MAX_SMEM_BYTES} a block may use")
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = _build.load_library()
     fn = lib.v2t_fused_gru_sequence_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -99,19 +104,27 @@ def fused_gru_sequence(x, w_i, w_h, b_i, b_h, h0=None):
     _validate(named)
     if x.device.type == "cpu":
         return gru_sequence(x, w_i, w_h, b_i, b_h, h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_gru_sequence runs on cuda or cpu, not {x.device}")
     B, T, I = x.shape
     H = w_h.shape[0]
+    smem = smem_bytes(H)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(f"H={H} needs {smem} bytes of shared memory per block, more "
+                         f"than the {_MAX_SMEM_BYTES} a block may use (H <= {MAX_HIDDEN})")
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_gru_sequence runs on cuda or cpu, not {x.device}")
     lib, fn = _kernel()
     gi = torch.addmm(b_i, x.reshape(B * T, I), w_i).reshape(B, T, 3 * H)
     h0 = x.new_zeros(B, H) if h0 is None else h0
     outs = x.new_empty(B, T, H)
     h_last = x.new_empty(B, H)
+    # The barrier's counters, one per row tile at most, zeroed on every call
+    # (a memset node when the call is captured in a CUDA graph).
+    counters = torch.zeros(-(-B // _ROWS), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(gi.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), h0.data_ptr(),
-                  outs.data_ptr(), h_last.data_ptr(), B, T, H, _smem_bytes(H), stream)
+                  outs.data_ptr(), h_last.data_ptr(), counters.data_ptr(), B, T, H, smem,
+                  stream)
     _build.check(lib, code, "fused_gru_sequence")
     fused_gru_sequence.launches += 1
     return outs, h_last

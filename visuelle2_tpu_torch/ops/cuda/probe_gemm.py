@@ -8,13 +8,18 @@ Replace ``scripts/perf_pallas_convfloor.py::_pallas_matmul`` and
                        f32 sum rounded to bf16 once
     matmul_int8(x, w)  x [M, K] int8 · w [K, N] int8 -> [M, N] int32, exact
 
-The kernels are ``csrc/probe_gemm.cu`` (its note gives the bound and the
-design).  Both take any M >= 1 (the ragged last row tile is masked in the
-kernel), N in {64, 128, 256, 512} (warp tiles of 64 columns) and K a
-multiple of the 128-byte chunk the kernel stages x in (64 bf16, 128 int8).
-A wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises — there is no fallback.  Each
-wrapper's ``launches`` counts its kernel launches.
+The kernels are ``csrc/probe_gemm_bf16.cu`` (bf16: TMA and wgmma, a
+persistent grid) and ``csrc/probe_gemm.cu`` (int8: cp.async and mma.sync);
+each file's note gives the bound and the design.  Both take any M >= 1 (the
+ragged last row tile is masked in the kernel), N in {64, 128, 256, 512} and K
+a multiple of the 128-byte chunk they stage x in (64 bf16, 128 int8).  Both
+keep all of w in one block's shared memory, which bounds K for each N
+(``smem_bytes``): in bf16 K <= 1536, 768, 384, 192 at N = 64, 128, 256, 512
+(w plus at least two stages of x), in int8 K <= 1536, 1280, 768, 384; past
+that a wrapper raises on CUDA tensors.  A wrapper takes the plain version
+only for tensors on the CPU (at any K); for CUDA tensors it launches the
+kernel or raises — there is no fallback.  Each wrapper's ``launches``
+counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -27,7 +32,11 @@ import torch
 from visuelle2_tpu_torch.ops.cuda import _build
 
 _MAX_SMEM_BYTES = 232448  # 227 KB: what one Hopper block may use
-_STAGES, _CHUNK_BYTES, _WARPS, _WARP_ROWS, _WARP_COLS = 4, 128, 8, 32, 64
+_CHUNK_BYTES = 128  # bytes of one x row that either kernel stages at a time
+# csrc/probe_gemm.cu (int8): ring depth, warps and warp tile.
+_STAGES, _WARPS, _WARP_ROWS, _WARP_COLS = 4, 8, 32, 64
+# csrc/probe_gemm_bf16.cu: most ring stages, alignment slack + barriers.
+_BF16_MAX_STAGES, _BF16_FIXED_BYTES = 8, 1024 + 256
 N_ALLOWED = (64, 128, 256, 512)
 
 
@@ -54,8 +63,26 @@ def bf16_tolerance(x, w, want):
     return 2.0 ** -7 * want.float().abs() + 2 * k * 2.0 ** -24 * (x.float().abs() @ w.float().abs())
 
 
+def bf16_tile_rows(N: int) -> int:
+    """Rows of the bf16 kernel's tile: 128, or 64 at N = 512, where each
+    consumer warpgroup takes half of the columns."""
+    return 64 if N > 256 else 128
+
+
+def bf16_stages(K: int, N: int) -> int:
+    """Stages of x the bf16 kernel's ring gets beside w: as many as fit,
+    at most eight (below 2 the shape does not fit)."""
+    free = _MAX_SMEM_BYTES - _BF16_FIXED_BYTES - K * N * 2
+    return min(_BF16_MAX_STAGES, free // (bf16_tile_rows(N) * _CHUNK_BYTES))
+
+
 def smem_bytes(K: int, N: int, esize: int) -> int:
-    """Dynamic shared memory of one block; layout in csrc/probe_gemm.cu."""
+    """Dynamic shared memory of one block of the kernel for ``esize``-byte
+    inputs (2: bf16, 1: int8); layouts in the kernels' sources.  Past
+    227 KB when the shape does not fit."""
+    if esize == 2:
+        stages = max(2, bf16_stages(K, N))
+        return _BF16_FIXED_BYTES + K * N * 2 + stages * bf16_tile_rows(N) * _CHUNK_BYTES
     bm = _WARP_ROWS * (_WARPS // (N // _WARP_COLS))
     return K * N * esize + _STAGES * bm * _CHUNK_BYTES
 
