@@ -39,11 +39,14 @@ then, each phase printing one JSON line and any failure exiting non-zero:
 10. mha_kernel_times — per variant at the main-path shape, the kernel's and
    the plain version's device time per launch and time per call, and the
    bound;
-11. additive_kernel — ``fused_additive_attention`` against its plain version
-   (TF32 off, atol 2e-5, rtol 1e-5 on the output and α), both ``weight_on``,
-   at the three CrossAttnRNN Demand shapes (B=128, De=Dd=A=512, L = 100
-   image patches, 52 trend steps, 4 fused tokens), a ragged one (B=37, L=13,
-   De=48, Dd=40, A=24) and L=2;
+11. additive_kernel — ``fused_additive_attention`` (a 3xTF32 tensor-core
+   GEMM launch and an energy/softmax/scaling launch per call) against its
+   plain version (TF32 off, atol 2e-5, rtol 1e-5 on the output and α), both
+   ``weight_on``, at the three CrossAttnRNN Demand shapes (B=128,
+   De=Dd=A=512, L = 100 image patches, 52 trend steps, 4 fused tokens), a
+   ragged one (B=37, L=13, De=48, Dd=40, A=24) and L=2; at each, the kernels
+   a call launches (at most 2) and, at the Demand shapes, each launch's
+   device µs and their sum;
 12. gru_kernel — ``fused_gru_sequence`` (one persistent launch per call)
    against its plain step loop and cuDNN's ``torch.nn.GRU`` at the trend
    GRU's shape (B=128, T=52, I=3, H=512; atol 1e-4), at ragged small ones
@@ -51,13 +54,20 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    2e-5) and at ten row tiles on four row groups (B=300, H=512; atol 1e-4);
    at each, a second call on the same inputs gives the same bits (the sums
    take no atomics: a difference is a race in the step barrier);
+12b. gru_wide — the GRU kernel's streamed layout (W_h and h through
+   shared memory in k-chunks, past the resident layout's H = 724) at H =
+   725, 1,024, 1,664 and 2,112 (the limit on an H100: a unit slice on each
+   of its 132 SMs; B=128, T=8, I=64) against its plain version (atol
+   1e-4), one launch a call, the same bits twice; the recurrence's device µs
+   at H = 1,024 beside ``torch.nn.GRU``'s and the bound;
 13. forward_demand — the full-width CrossAttnRNN Demand forecaster
    (ResNet-101 at 299², bf16 backbone, E=A=H=512, B=128, random weights from
    a seeded generator) through ``make_forecaster``: finite [128, 12, 1]
    forecasts, exactly 36 ``fused_additive_attention`` launches per forward
-   (3 per decode step), the kernel held to its plain version on the
-   attention inputs of the real forward, and a small Demand on the card held
-   to the same model on the CPU in f32;
+   (3 per decode step), the kernel within half its tolerance of its plain
+   version on the attention inputs of the real forward, and of a second
+   forward with weights and batch from another seed, and a small Demand on
+   the card held to the same model on the CPU in f32;
 14. forward_demand_gru — the same forecaster with its trend GRU on the
    kernel path (``GRU.use_kernel``, the port of the JAX ``use_pallas``):
    one ``fused_gru_sequence`` launch per forward, forecasts against the
@@ -67,8 +77,9 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    launches per forward;
 16. times_demand — Demand's forward times as in 6;
 17. additive_kernel_times — per Demand call (L = 100, 52, 4), the kernel's
-   and the plain version's device time per launch and time per call,
-   launches per forward, and the bound;
+   and the plain version's device time per call, the kernel's per launch,
+   launches per call and per forward, and the bounds (float32-accurate:
+   the lesser of float32 FMAs and 3xTF32 products; and float32 FMAs alone);
 18. gru_kernel_times — at the trend GRU's shape, the device time per call
    and time per call of the kernel path (input GEMM and the one recurrence
    launch), the recurrence kernel's own device time, of its plain version
@@ -133,6 +144,17 @@ GRU_ATOL_FULL, GRU_ATOL_SMALL = 1e-4, 2e-5
 # The read probe's partials: 256 bf16 values summed in f32 in another order.
 READ_ATOL, READ_RTOL = 1e-4, 1e-5
 GRU_KERNEL_NAME = "gru_persistent_f32_kernel"  # csrc/gru_seq.cu, as the profiler names it
+# csrc/additive_attention.cu: the grouped 3xTF32 GEMM, then the energies,
+# softmax and scaling.
+ADDITIVE_KERNEL_NAMES = ("gemm_3xtf32_kernel", "attend_kernel")
+ADDITIVE_MAX_LAUNCHES = 2
+# The streamed layout's widths (B=128, T=8, I=64), up to the limit on an H100
+# SXM: one 16-unit slice on each of its 132 SMs.
+GRU_WIDE = (725, 1024, 1664, 2112)
+# The additive attention kernel's tensor-core sums lose more than float32
+# FMAs: on a Demand forward's own inputs it must stay within half its
+# tolerance, at two seeds of weights and batches.
+DEMAND_ATTN_MAX_SHARE = 0.5
 BF16_GEMM_TOL = "one bf16 ulp (rtol 2^-7) + 2*K*2^-24*(|x|.|w|), the f32 reordering bound"
 HARNESS_TARGET_S = 0.2   # device seconds per harness measurement
 CROSS_ATTN_DIMS = dict(attention_dim=512, embedding_dim=512, hidden_dim=512)
@@ -238,15 +260,34 @@ def _call_times(fns, n_calls):
 
 def _profiled_kernels_us(fn):
     """The profiler's device µs per record of each kernel ``fn`` launches
-    (name -> [records, µs per record]) over 20 calls."""
+    (name -> [records, µs per record]) over 20 calls; a window in which the
+    profiler kept no kernel record is taken again, up to three times."""
     fn()
-    with _profile() as prof:
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:60]: [e.count, e.self_device_time_total / e.count]
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.count}
+    for _ in range(3):
+        with _profile() as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        records = {e.key[:60]: [e.count, e.self_device_time_total / e.count]
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.count}
+        if records:
+            return records
+    raise RuntimeError("chip_smoke: the profiler kept no kernel record in three windows")
+
+
+def _kernels_per_call(per_kernel, n_calls=20):
+    """Kernel launches a call from ``_profiled_kernels_us``: the kernel names
+    seen, or the records a call where the profiler kept more."""
+    return max(len(per_kernel), round(sum(n for n, _ in per_kernel.values()) / n_calls))
+
+
+def _launch_split_us(per_kernel):
+    """Each kernel's device µs per record, and their sum: a call's device µs
+    where each kernel launches once a call."""
+    split = {name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]: us
+             for name, (_, us) in per_kernel.items()}
+    return {**split, "total": sum(split.values())}
 
 
 def _kernel_vs_plain_times(kernel, plain, args, kwargs, n_calls=500):
@@ -345,6 +386,33 @@ def _additive_err(got, want):
     return max(e_out, e_alpha), ok_out and ok_alpha
 
 
+def _tolerance_share(got, want):
+    """The most of |got - want| / (atol + rtol·|want|) over the (output, α)
+    pair: the worst element's share of its tolerance (over 1: outside)."""
+    return max(((g - w).abs() / (MHA_ATOL + MHA_RTOL * w.abs())).max().item()
+               for g, w in zip(got, want))
+
+
+def _demand_attention_check(mods, calls, additive, additive_plain):
+    """The additive attention kernel against its plain version on a Demand
+    forward's own attention inputs, one entry per call length L: max abs
+    error, the worst element's share of the tolerance, and |enc| and |out|
+    at most.  Fails past ``DEMAND_ATTN_MAX_SHARE`` of the tolerance."""
+    errs, shares, absmax = {}, {}, {}
+    with torch.inference_mode():
+        for mod, args in zip(mods, calls):
+            got = additive(*args, weight_on=mod.weight_on)
+            want = additive_plain(*args, weight_on=mod.weight_on)
+            key = f"L={args[0].shape[1]}"
+            errs[key], _ = _additive_err(got, want)
+            shares[key] = _tolerance_share(got, want)
+            absmax[key] = {"enc": args[0].abs().max().item(), "out": want[0].abs().max().item()}
+    _require(max(shares.values()) <= DEMAND_ATTN_MAX_SHARE,
+             f"additive attention vs plain on Demand forward inputs: {errs}, share of the "
+             f"tolerance {shares} (at most {DEMAND_ATTN_MAX_SHARE}), |x| max {absmax}")
+    return {"max_abs_err": errs, "tolerance_share": shares, "abs_max": absmax}
+
+
 def _stfore_batch(n, image_size, seed, windows=2):
     """A windowed SO-fore batch: sales lags ``X [n, windows, 2]``."""
     b = _synthetic_batch(n, image_size, seed)
@@ -427,7 +495,7 @@ def main():
     from visuelle2_tpu_torch.eval.export import make_forecaster
     from visuelle2_tpu_torch.eval.server import drain_and_close, make_server
     from visuelle2_tpu_torch.models import VocabSizes, build
-    from visuelle2_tpu_torch.ops.cuda import _build, roofline
+    from visuelle2_tpu_torch.ops.cuda import _build, gru_seq, roofline
     from visuelle2_tpu_torch.ops.cuda.additive_attention import (
         fused_additive_attention as additive,
         fused_additive_attention_plain as additive_plain,
@@ -620,12 +688,14 @@ def main():
     Bm, D = x.shape
     C = ctx.shape[1]
     k_bytes, k_flops = roofline.gated_residual_cost(Bm, D, C)
-    bound_ms, bound_by = roofline.bound_ms(k_bytes, k_flops)
+    bound_ms, bound_by = roofline.f32_accurate_bound_ms(k_bytes, k_flops)
+    bound_simt_ms = roofline.bound_ms(k_bytes, k_flops)[0]
     _emit({"phase": "kernel_times", **card,
            "kernel_shape": {"B": Bm, "D": D, "C": C},
            "kernel_device_us": 1e3 * k_ms, "plain_device_us": 1e3 * p_ms,
            "kernel_call_us": 1e3 * call_ms["kernel"], "plain_call_us": 1e3 * call_ms["plain"],
            "kernel_bytes": k_bytes, "kernel_flops": k_flops, "bound_us": 1e3 * bound_ms,
+           "bound_simt_f32_us": 1e3 * bound_simt_ms,
            "library_ms": "none: no single PyTorch call computes this function"})
     del model, fn
 
@@ -689,7 +759,7 @@ def main():
             _require(args[1] is args[2], "key and value are one tensor on the main path")
             n_bytes, flops = roofline.gated_mha_cost(
                 Bm, Lq, Lk, D, **kw, self_attention=args[0] is args[1])
-            v_bound_ms, v_bound_by = roofline.bound_ms(n_bytes, flops)
+            v_bound_ms, v_bound_by = roofline.f32_accurate_bound_ms(n_bytes, flops)
             per_variant[variant] = {
                 "shape": {"B": args[0].shape[0], "Lq": args[0].shape[1],
                           "Lk": args[1].shape[1], "D": args[0].shape[2], "heads": kw["num_heads"]},
@@ -699,7 +769,8 @@ def main():
                 "kernel_call_us": 1e3 * call_ms["kernel"],
                 "plain_call_us": 1e3 * call_ms["plain"],
                 "bytes": n_bytes, "flops": flops, "bound_us": 1e3 * v_bound_ms,
-                "bound_by": v_bound_by}
+                "bound_by": v_bound_by,
+                "bound_simt_f32_us": 1e3 * roofline.bound_ms(n_bytes, flops)[0]}
     _emit({"phase": "mha_kernel_times", **card, "variants": per_variant,
            "library_ms": "none: no single PyTorch call computes the gated epilogue"})
     # The kernels line gives one launch's numbers averaged over a forward's
@@ -712,7 +783,7 @@ def main():
     del model, fn
 
     # 11. additive attention vs plain -----------------------------------------------
-    add_errs, add_bad = {}, []
+    add_errs, add_bad, add_launch_us, add_kernels_per_call = {}, [], {}, {}
     for shape in ((B, 100, 512, 512, 512), (B, 52, 512, 512, 512), (B, 4, 512, 512, 512),
                   (37, 13, 48, 40, 24), (5, 2, 16, 20, 16)):
         Bk, L, De, Dd, A = shape
@@ -730,9 +801,17 @@ def main():
             add_errs[key], ok = _additive_err(got, want)
             if not ok:
                 add_bad.append(key)
-    _emit({"phase": "additive_kernel", "max_abs_err": add_errs, "atol": MHA_ATOL,
-           "rtol": MHA_RTOL})
+            per_kernel = _profiled_kernels_us(lambda: additive(*args, weight_on=weight_on))
+            add_kernels_per_call[key] = _kernels_per_call(per_kernel)
+            if Bk == B:
+                add_launch_us[key] = _launch_split_us(per_kernel)
+    _emit({"phase": "additive_kernel", **card, "max_abs_err": add_errs, "atol": MHA_ATOL,
+           "rtol": MHA_RTOL, "kernels_per_call": add_kernels_per_call,
+           "device_us_per_launch": add_launch_us})
     _require(not add_bad, f"additive attention disagrees with plain at {add_bad}: {add_errs}")
+    _require(max(add_kernels_per_call.values()) <= ADDITIVE_MAX_LAUNCHES,
+             f"additive attention launched more than {ADDITIVE_MAX_LAUNCHES} kernels a call: "
+             f"{add_kernels_per_call}")
 
     # 12. GRU sequence vs plain and cuDNN ---------------------------------------------
     gru_errs = {}
@@ -765,6 +844,45 @@ def main():
                  f"GRU kernel: two calls on the same inputs differ at {key}")
     _emit({"phase": "gru_kernel", "max_abs_err": gru_errs})
 
+    # 12b. the GRU kernel's streamed layout, past H = 724 ---------------------------
+    wide_errs, wide_us = {}, {}
+    for H in GRU_WIDE:
+        Bk, T, I = B, 8, 64
+        x = torch.rand(Bk, T, I, device=dev, generator=gen)
+        w = [(torch.rand(*shape, device=dev, generator=gen) * 2 - 1) * H ** -0.5
+             for shape in ((I, 3 * H), (H, 3 * H), (3 * H,), (3 * H,))]
+        h0 = torch.randn(Bk, H, device=dev, generator=gen) * 0.5
+        before = gru_kernel.launches
+        outs, h_last = gru_kernel(x, *w, h0)
+        again, again_h = gru_kernel(x, *w, h0)
+        want, want_h = gru_plain(x, *w, h0)
+        torch.cuda.synchronize()
+        key = f"{Bk}x{T}x{I}x{H}"
+        wide_errs[key] = {
+            "vs_plain": max((outs - want).abs().max().item(),
+                            (h_last - want_h).abs().max().item()),
+            "launches_per_call": (gru_kernel.launches - before) / 2,
+            "second_call_bit_identical": torch.equal(outs, again) and torch.equal(h_last, again_h)}
+        _require(wide_errs[key]["vs_plain"] <= GRU_ATOL_FULL and
+                 wide_errs[key]["second_call_bit_identical"] and
+                 wide_errs[key]["launches_per_call"] == 1,
+                 f"GRU kernel's streamed layout at {key}: {wide_errs[key]}")
+        if H == 1024:
+            library = cudnn_gru(*w)
+            with torch.inference_mode():
+                per_kernel = _profiled_kernels_us(lambda: gru_kernel(x, *w, h0))
+                lib_device_ms, _ = _call_times({"library": lambda: library(x, h0[None])},
+                                               n_calls=50)
+            recurrence = [us for name, (_, us) in per_kernel.items() if GRU_KERNEL_NAME in name]
+            _require(recurrence, f"the profiler saw no {GRU_KERNEL_NAME} kernel at {key}")
+            cost = roofline.gru_sequence_cost(Bk, T, H)
+            wide_us = {"shape": key, "recurrence_device_us": recurrence[0],
+                       "library_device_us": 1e3 * lib_device_ms["library"],
+                       "bound_us": 1e3 * roofline.f32_accurate_bound_ms(*cost)[0],
+                       "bound_simt_f32_us": 1e3 * roofline.bound_ms(*cost)[0]}
+    _emit({"phase": "gru_wide", **card, "max_abs_err": wide_errs, "atol": GRU_ATOL_FULL,
+           "times": wide_us})
+
     # 13. full-width CrossAttnRNN Demand through the serving callable --------------
     model = build("cross_attn_rnn_demand", device=dev, generator=torch.Generator().manual_seed(0),
                   vocab=VocabSizes(5, 6, 5, 126), out_len=12, image_arch="resnet101",
@@ -793,14 +911,29 @@ def main():
              f"{add_launches} additive attention launches in {N_FWD} Demand forwards")
     _require(demand_gru_launches == 0 and other_launches == 0,
              f"Demand launched other kernels: GRU {demand_gru_launches}, {other_launches}")
+    demand_attn = {"seed 0": _demand_attention_check(add_mods, add_calls, additive,
+                                                     additive_plain)}
+    # The same check on a second Demand, its weights and batch from another seed.
+    other = build("cross_attn_rnn_demand", device=dev,
+                  generator=torch.Generator().manual_seed(1), vocab=VocabSizes(5, 6, 5, 126),
+                  out_len=12, image_arch="resnet101", image_dtype=torch.bfloat16,
+                  **CROSS_ATTN_DIMS)
+    other_mods = _attention_modules(other)
+    other_calls = [None] * len(other_mods)
+
+    def capture_other(i):
+        def hook(mod, args):
+            other_calls[i] = mod.kernel_inputs(*args)
+        return hook
+
+    hooks = [m.register_forward_pre_hook(capture_other(i)) for i, m in enumerate(other_mods)]
     with torch.inference_mode():
-        demand_attn_errs = {}
-        for mod, args in zip(add_mods, add_calls):
-            got = additive(*args, weight_on=mod.weight_on)
-            want = additive_plain(*args, weight_on=mod.weight_on)
-            key = f"L={args[0].shape[1]}"
-            demand_attn_errs[key], ok = _additive_err(got, want)
-            _require(ok, f"additive attention vs plain on forward inputs: {demand_attn_errs}")
+        other(_to_device(_synthetic_batch(B, IMAGE, seed=21), dev))
+    for h in hooks:
+        h.remove()
+    demand_attn["seed 1"] = _demand_attention_check(other_mods, other_calls, additive,
+                                                    additive_plain)
+    del other, other_mods, other_calls
     demand_card_vs_cpu = _card_vs_cpu("cross_attn_rnn_demand", dev, attention_dim=64,
                                       embedding_dim=64, hidden_dim=64)
     _emit({"phase": "forward_demand", **card, "model": "cross_attn_rnn_demand", "batch": B,
@@ -808,7 +941,7 @@ def main():
            "launches_per_forward": add_launches / N_FWD,
            "attention_shapes": [list(a[0].shape) + [a[1].shape[1]] for a in add_calls],
            "forecast_absmax": float(np.abs(outs[0]).max()),
-           "attention_inputs_max_abs_err": demand_attn_errs,
+           "attention_inputs": demand_attn, "attention_max_tolerance_share": DEMAND_ATTN_MAX_SHARE,
            "f32_card_vs_cpu_max_abs_err": demand_card_vs_cpu, "f32_tol": F32_ATOL})
     _require(demand_card_vs_cpu <= F32_ATOL, f"Demand on card vs CPU in f32: {demand_card_vs_cpu}")
 
@@ -856,9 +989,7 @@ def main():
     # 16.–18. Demand times, additive attention times, GRU times ---------------------
     _emit({"phase": "times_demand", **card, "model": "cross_attn_rnn_demand",
            **_forward_times(model, fn, host_batches, dev, seed=400, kernel_groups={
-               "fused_additive_attention": tuple(
-                   f"(anonymous namespace)::{k}_kernel"
-                   for k in ("dec_proj", "energy", "softmax", "scale"))})})
+               "fused_additive_attention": ADDITIVE_KERNEL_NAMES})})
     per_call = {}
     with torch.inference_mode():
         for mod, args in zip(add_mods, add_calls):
@@ -866,24 +997,30 @@ def main():
             # 50 calls: the profiler dropped kernels over 200 calls (800 launches).
             device_ms, call_ms = _kernel_vs_plain_times(additive, additive_plain, args, kw,
                                                         n_calls=50)
+            per_kernel = _profiled_kernels_us(lambda: additive(*args, **kw))
             (Bm, L, De), (Dd, A) = args[0].shape, args[3].shape
             n_bytes, flops = roofline.additive_attention_cost(Bm, L, De, Dd, A, mod.weight_on)
-            c_bound_ms, c_bound_by = roofline.bound_ms(n_bytes, flops)
+            c_bound_ms, c_bound_by = roofline.f32_accurate_bound_ms(n_bytes, flops)
             per_call[f"L={L}"] = {
                 "shape": {"B": Bm, "L": L, "De": De, "Dd": Dd, "A": A,
                           "weight_on": mod.weight_on},
                 "launches_per_forward": model.out_len,
+                "kernel_launches_per_call": _kernels_per_call(per_kernel),
                 "kernel_device_us": 1e3 * device_ms["kernel"],
+                "kernel_device_us_per_launch": _launch_split_us(per_kernel),
                 "plain_device_us": 1e3 * device_ms["plain"],
                 "kernel_call_us": 1e3 * call_ms["kernel"],
                 "plain_call_us": 1e3 * call_ms["plain"],
                 "bytes": n_bytes, "flops": flops, "bound_us": 1e3 * c_bound_ms,
-                "bound_by": c_bound_by}
+                "bound_by": c_bound_by,
+                "bound_simt_f32_us": 1e3 * roofline.bound_ms(n_bytes, flops)[0]}
+            _require(per_call[f"L={L}"]["kernel_launches_per_call"] <= ADDITIVE_MAX_LAUNCHES,
+                     f"additive attention at L={L}: {per_call[f'L={L}']}")
     _emit({"phase": "additive_kernel_times", **card, "calls": per_call,
            "library_ms": "none: no single PyTorch call computes additive attention"})
     add_mix = lambda key: sum(v[key] for v in per_call.values()) / len(per_call) / 1e3
-    add_mix_bound = roofline.bound_ms(sum(v["bytes"] for v in per_call.values()),
-                                      sum(v["flops"] for v in per_call.values()))
+    add_mix_bound = roofline.f32_accurate_bound_ms(sum(v["bytes"] for v in per_call.values()),
+                                                   sum(v["flops"] for v in per_call.values()))
 
     # The trend GRU's own weights and input, as the kernel path runs them.
     gru_x = dev_batch["gtrends"].transpose(1, 2).contiguous()
@@ -907,7 +1044,8 @@ def main():
     Bg, Tg, _ = gru_x.shape
     Hg = trend_gru.hidden_dim
     gru_bytes, gru_flops = roofline.gru_sequence_cost(Bg, Tg, Hg)
-    gru_bound_ms, gru_bound_by = roofline.bound_ms(gru_bytes, gru_flops)
+    gru_bound_ms, gru_bound_by = roofline.f32_accurate_bound_ms(gru_bytes, gru_flops)
+    gru_bound_simt_ms = roofline.bound_ms(gru_bytes, gru_flops)[0]
     _emit({"phase": "gru_kernel_times", **card,
            "shape": {"B": Bg, "T": Tg, "I": gru_x.shape[2], "H": Hg},
            "kernel_device_us": 1e3 * gru_device_ms["kernel"],
@@ -920,7 +1058,7 @@ def main():
            "library_call_us": 1e3 * gru_call_ms["library"],
            "launches_per_forward_on_kernel_path": 1,
            "bytes": gru_bytes, "flops": gru_flops, "bound_us": 1e3 * gru_bound_ms,
-           "bound_by": gru_bound_by})
+           "bound_by": gru_bound_by, "bound_simt_f32_us": 1e3 * gru_bound_simt_ms})
 
     del model, fn, dev_batch, add_calls
 
@@ -1018,7 +1156,7 @@ def main():
         "launches": launches,
         "max_abs_err": max(max(errs.values()), fusion_err), "tol": KERNEL_ATOL,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}, {
+        "bound_simt_f32_ms": bound_simt_ms, "library_ms": None}, {
         "name": "fused_gated_mha", "route": "cuda",
         "source": "visuelle2_tpu_torch/csrc/gated_mha.cu",
         "replaces": "visuelle2_tpu/ops/pallas/gated_mha.py:107",
@@ -1027,8 +1165,8 @@ def main():
         "atol": MHA_ATOL, "rtol": MHA_RTOL,
         "ms": mix("kernel_device_us"), "plain_ms": mix("plain_device_us"),
         "bound_ms": mix("bound_us"),
-        "bound_by": roofline.bound_ms(mix_bytes, mix_flops)[1],
-        "library_ms": None,
+        "bound_by": roofline.f32_accurate_bound_ms(mix_bytes, mix_flops)[1],
+        "bound_simt_f32_ms": mix("bound_simt_f32_us"), "library_ms": None,
         "by_variant_us": {v: {k: per_variant[v][k] for k in
                               ("kernel_device_us", "plain_device_us", "bound_us")}
                           for v in per_variant}}, {
@@ -1036,13 +1174,15 @@ def main():
         "source": "visuelle2_tpu_torch/csrc/additive_attention.cu",
         "replaces": "visuelle2_tpu/ops/pallas/additive_attention.py:74",
         "launches": add_launches,
-        "max_abs_err": max(max(add_errs.values()), max(demand_attn_errs.values())),
+        "max_abs_err": max(max(add_errs.values()), *(e for check in demand_attn.values()
+                                                       for e in check["max_abs_err"].values())),
         "atol": MHA_ATOL, "rtol": MHA_RTOL,
         "ms": add_mix("kernel_device_us"), "plain_ms": add_mix("plain_device_us"),
         "bound_ms": add_mix("bound_us"), "bound_by": add_mix_bound[1],
-        "library_ms": None,
+        "bound_simt_f32_ms": add_mix("bound_simt_f32_us"), "library_ms": None,
+        "launches_per_call": max(v["kernel_launches_per_call"] for v in per_call.values()),
         "by_call_us": {k: {f: v[f] for f in ("kernel_device_us", "plain_device_us",
-                                             "bound_us")}
+                                             "bound_us", "bound_simt_f32_us")}
                        for k, v in per_call.items()}}, {
         "name": "fused_gru_sequence", "route": "cuda",
         "source": "visuelle2_tpu_torch/csrc/gru_seq.cu",
@@ -1054,7 +1194,11 @@ def main():
         "atol": GRU_ATOL_FULL,
         "ms": gru_device_ms["kernel"], "plain_ms": gru_device_ms["plain"],
         "bound_ms": gru_bound_ms, "bound_by": gru_bound_by,
-        "library_ms": gru_device_ms["library"]},
+        "bound_simt_f32_ms": gru_bound_simt_ms, "library_ms": gru_device_ms["library"],
+        "hidden_range_on_cuda": "H <= {} (resident layout up to {}, streamed above)".format(
+            gru_seq.max_hidden(torch.cuda.get_device_properties(dev).multi_processor_count),
+            gru_seq.RESIDENT_MAX_HIDDEN),
+        "wide_us": wide_us},
         probe_row("probe_matmul_bf16", "bf16", "visuelle2_tpu_torch/csrc/probe_gemm_bf16.cu", 176,
                   probe["max_abs_err"]["bf16"], {"tol": BF16_GEMM_TOL}),
         probe_row("probe_matmul_int8", "int8", "visuelle2_tpu_torch/csrc/probe_gemm.cu", 209,

@@ -195,11 +195,40 @@ def _additive_inputs(B, L, De, Dd, A, seed=0):
     (23, 100, 40, 24, 200),      # the large tile: rows and A not multiples of 128
 ])
 def test_additive_attention_kernel_matches_plain(weight_on, shape):
+    """Against the plain version, in at most two kernel launches a call (the
+    grouped 3xTF32 GEMM, then the energies, softmax and scaling), counted by
+    the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     args = _additive_inputs(*shape)
     before = taa.fused_additive_attention.launches
-    got = taa.fused_additive_attention(*args, weight_on=weight_on)
-    torch.cuda.synchronize()
-    assert taa.fused_additive_attention.launches == before + 1
+    for calls in range(1, 4):  # the profiler can keep no record of a short window
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = taa.fused_additive_attention(*args, weight_on=weight_on)
+            torch.cuda.synchronize()
+        records = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count]
+        if records:
+            break
+    assert taa.fused_additive_attention.launches == before + calls
+    assert 1 <= sum(n for _, n in records) <= 2, records
+    want = taa.fused_additive_attention_plain(*args, weight_on=weight_on)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=MHA_ATOL, rtol=MHA_RTOL)
+
+
+@pytest.mark.parametrize("bn", [32, 64, 104, 128])
+@pytest.mark.parametrize("weight_on", ["inputs", "projected"])
+def test_additive_attention_every_tile_width(weight_on, bn):
+    """Both GEMM tile widths the launch plan may pick, on ragged rows,
+    columns and depths, against the plain version."""
+    args = _additive_inputs(29, 13, 52, 36, 136, seed=bn)
+    B, L, De = args[0].shape
+    Dd, A = args[3].shape
+    projected = weight_on == "projected"
+    plan = dict(taa.launch_plan(B, L, De, Dd, A, projected=projected), bn=bn)
+    got = taa._launch(dict(zip(("enc", "dec", "we", "wd", "v", "vb"), args)), projected, plan)
     want = taa.fused_additive_attention_plain(*args, weight_on=weight_on)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=MHA_ATOL, rtol=MHA_RTOL)
@@ -237,7 +266,15 @@ def _gru_inputs(B, T, I, H, seed=0):
                                         ((150, 6, 4, 200), 2e-5),
                                         # ten row tiles on four row groups: a block
                                         # walks over several tiles a step
-                                        ((300, 4, 3, 512), 1e-4)])
+                                        ((300, 4, 3, 512), 1e-4),
+                                        # the streamed layout: past the resident
+                                        # one's 724 (725 also takes no float4 loads),
+                                        # at 1,664, and at the limit, 2,112: one
+                                        # unit slice on each of an H100's 132 SMs
+                                        ((128, 8, 64, 725), 1e-4),
+                                        ((128, 8, 64, 1024), 1e-4),
+                                        ((128, 8, 64, 1664), 1e-4),
+                                        ((128, 8, 64, 2112), 1e-4)])
 def test_gru_kernel_matches_plain_and_cudnn(shape, atol):
     """The recurrence kernel against the plain step loop and cuDNN's
     torch.nn.GRU (same weights, transposed).  At full width 52 steps of
@@ -259,7 +296,8 @@ def test_gru_kernel_matches_plain_and_cudnn(shape, atol):
     torch.testing.assert_close(h_last, lib_h[0], atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(128, 52, 3, 512), (37, 9, 5, 24), (300, 4, 3, 512)])
+@pytest.mark.parametrize("shape", [(128, 52, 3, 512), (37, 9, 5, 24), (300, 4, 3, 512),
+                                   (128, 8, 64, 1024)])
 def test_gru_kernel_gives_the_same_bits_twice(shape):
     """The sums take no atomics and each has one order, so any difference
     between two calls on the same inputs is a race in the step barrier."""
@@ -294,12 +332,14 @@ def test_gru_kernel_in_a_cuda_graph_matches_eager():
         assert torch.equal(outs, want) and torch.equal(h_last, want_h)
 
 
-def test_gru_kernel_on_two_streams_at_once():
+@pytest.mark.parametrize("H", [512, 1024])
+def test_gru_kernel_on_two_streams_at_once(H):
     """Calls in flight on two streams at once, each grid nearly a whole card
     of blocks that meet at a barrier: the cooperative launch makes each grid
     resident as a whole or not at all, so no block spins waiting for one
-    that has no SM.  Each stream's results equal the calls made alone."""
-    inputs = [_gru_inputs(128, 52, 3, 512, seed=3), _gru_inputs(300, 4, 3, 512, seed=4)]
+    that has no SM.  Each stream's results equal the calls made alone; at
+    H = 1,024 in the streamed layout."""
+    inputs = [_gru_inputs(128, 52, 3, H, seed=3), _gru_inputs(300, 4, 3, H, seed=4)]
     want = [tgs.fused_gru_sequence(*a) for a in inputs]
     streams = [torch.cuda.Stream() for _ in inputs]
     for s in streams:

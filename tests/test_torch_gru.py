@@ -88,11 +88,12 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(rng, bad):
     elif bad == "mixed_device":
         args[2] = args[2].to("meta")
     elif bad == "smem":
-        # The W_h slice (48 columns of H) and the h tile (32 rows of H + 4):
-        # H = 2048 takes 655,872 bytes of the 232,448 a Hopper block may use.
-        # The limit is the kernel's, checked off the CPU (the plain CPU path
-        # takes any H), so the inputs lie on the meta device.
-        args = [a.to("meta") for a in _wrapper_args(rng, B=1, T=1, I=1, H=2048)]
+        # Past the resident layout's shared memory the kernel streams W_h and
+        # h; what bounds H then is co-residency: 16 units a block, one block
+        # on each of an H100's 132 SMs, H <= 2,112.  The limit is the
+        # kernel's, checked off the CPU (the plain CPU path takes any H), so
+        # the inputs lie on the meta device.
+        args = [a.to("meta") for a in _wrapper_args(rng, B=1, T=1, I=1, H=2113)]
     elif bad == "w_i_shape":
         args[1] = args[1][:, 1:].contiguous()
     elif bad == "h0_shape":
@@ -100,7 +101,7 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(rng, bad):
     else:
         args[0] = args[0][:, :0]
     match = {"f64": "float32", "non_contiguous": "contiguous", "mixed_device": "one device",
-             "smem": "shared memory", "w_i_shape": "w_i", "h0_shape": "h0",
+             "smem": "H <= 2112", "w_i_shape": "w_i", "h0_shape": "h0",
              "empty": "non-empty"}[bad]
     with pytest.raises(ValueError, match=match):
         tgs.fused_gru_sequence(*args, **kw)
@@ -121,26 +122,48 @@ def test_gru_sequence_bound_from_shapes():
     assert by == "operations" and round(1e3 * ms, 1) == 156.8
 
 
+def test_gru_sequence_f32_accurate_bound_from_shapes():
+    """The same work as three TF32 tensor-core products per multiply-add
+    (3xTF32, float32-accurate): 63.7 µs at the trend GRU's shape against
+    156.8 in float32 FMAs, still set by operations."""
+    cost = roofline.gru_sequence_cost(128, 52, 512)
+    ms, by = roofline.f32_accurate_bound_ms(*cost)
+    assert by == "operations" and round(1e3 * ms, 1) == 63.7
+    assert ms == min(roofline.bound_ms(*cost)[0], roofline.bound_ms(cost[0], 3 * cost[1], "tf32")[0])
+
+
 def test_persistent_kernel_shared_memory_and_its_hidden_limit(rng):
-    """A block keeps its W_h slice and one h tile in shared memory for the
-    whole sequence: 164,352 bytes at H = 512; H = 724 is the widest that
-    fits the 232,448 bytes of a Hopper block, and the wrapper says so off the
-    CPU.  The plain CPU path keeps taking any H."""
+    """Two layouts.  Up to H = 724 a block keeps its W_h slice and one h
+    tile in shared memory for the whole sequence: 164,352 bytes at H = 512,
+    and 724 is the widest that fits the 232,448 bytes of a Hopper block.
+    Past it a block streams both through two stages of 64-deep k-chunks,
+    41,984 bytes whatever H, and the limit is the unit slices the card holds
+    at once, 16 x its SMs: 2,112 on an H100.  The wrapper says so off the
+    CPU; the plain CPU path keeps taking any H."""
     assert tgs.smem_bytes(512) == 4 * (48 * 512 + 32 * 516) == 164_352
-    assert tgs.MAX_HIDDEN == 724
-    assert tgs.smem_bytes(724) <= 232_448 < tgs.smem_bytes(725)
+    assert tgs.RESIDENT_MAX_HIDDEN == 724
+    assert tgs.smem_bytes(724) <= 232_448 < tgs._resident_bytes(725)
     assert tgs.smem_bytes(13) == tgs.smem_bytes(16)  # k padded to 4
+    streamed = 4 * 2 * (48 * 64 + 32 * 68)
+    assert streamed == 41_984
+    for H in (725, 1024, 1664, 2112):
+        assert tgs.smem_bytes(H) == streamed
+    assert tgs.MAX_HIDDEN == tgs.max_hidden(132) == 2112
+    assert tgs.max_hidden(114) == 1824  # the SM count of the card, read at the call
     for H in (724, 725):
         args = _wrapper_args(rng, B=2, T=1, I=2, H=H)
         outs, h_last = tgs.fused_gru_sequence(*args)
         assert outs.shape == (2, 1, H) and torch.equal(outs[:, 0], h_last)
         want, _ = tgs.fused_gru_sequence_plain(*args)
         torch.testing.assert_close(outs, want, atol=0, rtol=0)
+    outs, _ = tgs.fused_gru_sequence(*_wrapper_args(rng, B=1, T=1, I=1, H=2113))
+    assert outs.shape == (1, 1, 2113)  # the CPU path has no limit
     meta = lambda H: [a.to("meta") for a in _wrapper_args(rng, B=2, T=1, I=2, H=H)]
-    with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        tgs.fused_gru_sequence(*meta(724))
-    with pytest.raises(ValueError, match="H <= 724"):
-        tgs.fused_gru_sequence(*meta(725))
+    for H in (724, 725, 1664, 2112):
+        with pytest.raises(ValueError, match="runs on cuda or cpu"):
+            tgs.fused_gru_sequence(*meta(H))
+    with pytest.raises(ValueError, match="H <= 2112"):
+        tgs.fused_gru_sequence(*meta(2113))
 
 
 def test_gru_split_variants_apply_to_the_kernel_source():

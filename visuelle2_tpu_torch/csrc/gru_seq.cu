@@ -51,12 +51,28 @@
 // once, one L2 round trip a step.  More rows or units a thread (fewer W_h
 // loads per FMA) is the next lever.
 //
-// Shared memory, dynamic: the W_h slice, [ceil(H / 4)][3][16] float4s (four
-// consecutive k of one gate column, zero past H), then the h tile, [32][ldh]
-// floats with ldh = 4 ceil(H / 4) + 4 (rows float4-aligned and in distinct
-// banks), zero past H.  ops/cuda/gru_seq.py::smem_bytes computes the same
-// size; the wrapper raises on CUDA tensors with an H for which it passes
-// 227 KB (H > 724).
+// Two layouts of shared memory, dynamic, one kernel template each:
+//
+// * resident (H <= 724): the W_h slice, [ceil(H / 4)][3][16] float4s (four
+//   consecutive k of one gate column, zero past H), then the h tile, [32][ldh]
+//   floats with ldh = 4 ceil(H / 4) + 4 (rows float4-aligned and in distinct
+//   banks), zero past H.  It passes a block's 227 KB past H = 724.
+// * streamed (H > 724): the W_h slice no longer fits a block (192 H bytes:
+//   320 KB at H = 1,664), nor W_h the card's shared memory as a whole (12 H^2
+//   bytes, 33 MB at H = 1,664, against 132 x 227 KB = 30 MB); it fits the
+//   50 MB L2.  So each step the block streams its W_h slice and the h tile
+//   through two stages of k-chunks, 64 k deep: [16][3][16] float4s of W_h
+//   and [32][68] floats of h a stage, 41,984 bytes in all.  Each thread
+//   loads the next chunk into registers (W_h through the read-only path, h
+//   past L1) while the block multiplies the current one, then stores it into
+//   the other stage; one block barrier a chunk.  The product loop, the
+//   epilogue (h of the step before read past L1 for z * h) and the step
+//   barrier are the resident layout's, so a sum runs over k in the same
+//   order.  The grid stays ceil(H / 16) unit slices x G row groups, all
+//   co-resident: the wrapper raises on CUDA tensors past H = 16 x the card's
+//   SMs (2,112 on an H100 SXM's 132, one block each), and the launch is
+//   refused where the card holds fewer blocks.
+// ops/cuda/gru_seq.py::smem_bytes computes both sizes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,6 +84,13 @@ constexpr int kRowThreads = 16;  // threadIdx.y
 constexpr int kRowsPer = 2;    // rows of a thread
 constexpr int kRows = kRowThreads * kRowsPer;  // rows of a tile
 constexpr int kThreads = kUnits * kRowThreads;
+constexpr int kMaxResidentHidden = 724;  // ops/cuda/gru_seq.py::RESIDENT_MAX_HIDDEN
+constexpr int kChunk = 64;               // k of one streamed chunk
+constexpr int kChunkLd = kChunk + 4;     // h chunk row stride: float4-aligned, distinct banks
+constexpr int kChunkW = kChunk * 3 * kUnits;  // W_h floats of a chunk
+constexpr int kChunkH = kRows * kChunkLd;     // h floats of a chunk
+constexpr int kWPer = kChunkW / kThreads;     // W_h values a thread loads a chunk
+constexpr int kHPer = kRows * kChunk / kThreads;  // h values a thread loads a chunk
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -80,8 +103,32 @@ __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   return v;
 }
 
+// The three gate sums of the thread's unit over nq quads of k, for its two
+// rows: W_h from `w4` ([nq][3][kUnits] float4s), h from `h_s` (rows `ldh`
+// floats apart).
+__device__ __forceinline__ void accumulate(float (&acc)[kRowsPer][3], const float4* w4,
+                                           const float* h_s, int ldh, int nq, int tx, int ty) {
+#pragma unroll 4
+  for (int q = 0; q < nq; ++q) {
+    float4 hv[kRowsPer];
+#pragma unroll
+    for (int i = 0; i < kRowsPer; ++i)
+      hv[i] = *reinterpret_cast<const float4*>(h_s + (ty + kRowThreads * i) * ldh + 4 * q);
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const float4 w = w4[(q * 3 + g) * kUnits + tx];
+#pragma unroll
+      for (int i = 0; i < kRowsPer; ++i)
+        acc[i][g] = fmaf(hv[i].w, w.w, fmaf(hv[i].z, w.z,
+                    fmaf(hv[i].y, w.y, fmaf(hv[i].x, w.x, acc[i][g]))));
+    }
+  }
+}
+
 // Grid (ceil(H / 16) unit slices, G row groups); `vec0` / `vec_outs`: h0 /
-// outs allow float4 loads of h (H % 4 == 0, 16-byte aligned).
+// outs allow float4 loads of h (H % 4 == 0, 16-byte aligned).  kStream picks
+// the streamed layout.
+template <bool kStream>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict__ wh,
                           const float* __restrict__ bh, const float* __restrict__ h0,
@@ -101,15 +148,17 @@ gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict_
   const int n_tiles = (B + kRows - 1) / kRows;
   const long long H3 = 3LL * H;
 
-  for (int i = tid; i < nq * 3 * kUnits; i += kThreads) {
-    const int u = i % kUnits, g = (i / kUnits) % 3, q = i / (3 * kUnits);
-    float v[4];
+  if (!kStream) {
+    for (int i = tid; i < nq * 3 * kUnits; i += kThreads) {
+      const int u = i % kUnits, g = (i / kUnits) % 3, q = i / (3 * kUnits);
+      float v[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = 4 * q + e;
-      v[e] = (k < H && u0 + u < H) ? wh[k * H3 + g * H + u0 + u] : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * q + e;
+        v[e] = (k < H && u0 + u < H) ? wh[k * H3 + g * H + u0 + u] : 0.f;
+      }
+      w_s[i] = make_float4(v[0], v[1], v[2], v[3]);
     }
-    w_s[i] = make_float4(v[0], v[1], v[2], v[3]);
   }
   const bool unit = j < H;
   const float b_r = unit ? bh[j] : 0.f, b_z = unit ? bh[H + j] : 0.f,
@@ -144,7 +193,7 @@ gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict_
 #pragma unroll
         for (int e = 0; e < 3; ++e) g_cur[i][e] = g_next[i][e];
       __syncthreads();  // every thread is done with the previous h tile
-      if (vec) {  // H % 4 == 0: nq float4s a row
+      if (!kStream && vec) {  // H % 4 == 0: nq float4s a row
         float4* h4 = reinterpret_cast<float4*>(h_s);
         // Unrolled, a thread's loads are all issued before its stores (16 a
         // step at H = 512): one L2 round trip, not one a load.
@@ -155,10 +204,19 @@ gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict_
               r < nrows ? __ldcg(reinterpret_cast<const float4*>(prev + (r0 + r) * stride) + q)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
         }
-      } else {
+      } else if (!kStream) {
         for (int i = tid; i < kRows * 4 * nq; i += kThreads) {
           const int r = i / (4 * nq), k = i - r * 4 * nq;
           h_s[r * ldh + k] = r < nrows && k < H ? __ldcg(prev + (r0 + r) * stride + k) : 0.f;
+        }
+      }
+      // The streamed layout reads h of the step before for z * h directly.
+      float h_old[kRowsPer];
+      if (kStream) {
+#pragma unroll
+        for (int i = 0; i < kRowsPer; ++i) {
+          const int r = ty + kRowThreads * i;
+          h_old[i] = unit && r < nrows ? __ldcg(prev + (r0 + r) * stride + j) : 0.f;
         }
       }
       __syncthreads();
@@ -168,19 +226,80 @@ gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict_
       if (next_t < T) load_gi(next_t, next_tile, g_next);
 
       float acc[kRowsPer][3] = {};
-#pragma unroll 4
-      for (int q = 0; q < nq; ++q) {
-        float4 hv[kRowsPer];
+      if (!kStream) {
+        accumulate(acc, w4, h_s, ldh, nq, tx, ty);
+      } else {
+        // Two stages of {W_h chunk [kChunk / 4][3][kUnits] float4s, h chunk
+        // [kRows][kChunkLd] floats}; chunk c + 1 is loaded into registers
+        // while chunk c is multiplied.
+        float* stage[2] = {reinterpret_cast<float*>(smem4),
+                           reinterpret_cast<float*>(smem4) + kChunkW + kChunkH};
+        float w_pre[kWPer], h_pre[kHPer];
+        auto fetch = [&](int c) {
+          const int k0 = c * kChunk;
 #pragma unroll
-        for (int i = 0; i < kRowsPer; ++i)
-          hv[i] = *reinterpret_cast<const float4*>(h_s + (ty + kRowThreads * i) * ldh + 4 * q);
+          for (int e = 0; e < kWPer; ++e) {
+            const int i = tid + e * kThreads;
+            const int u = i % kUnits, g = (i / kUnits) % 3, k = i / (3 * kUnits);
+            w_pre[e] = (k0 + k < H && u0 + u < H) ? __ldg(wh + (k0 + k) * H3 + g * H + u0 + u)
+                                                   : 0.f;
+          }
+          if (vec) {
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          const float4 w = w4[(q * 3 + g) * kUnits + tx];
+            for (int e = 0; e < kHPer / 4; ++e) {
+              const int i = tid + e * kThreads;
+              const int r = i / (kChunk / 4), q = i % (kChunk / 4);
+              const float4 x =
+                  r < nrows && k0 + 4 * q < H
+                      ? __ldcg(reinterpret_cast<const float4*>(prev + (r0 + r) * stride + k0) + q)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+              h_pre[4 * e] = x.x, h_pre[4 * e + 1] = x.y, h_pre[4 * e + 2] = x.z,
+              h_pre[4 * e + 3] = x.w;
+            }
+          } else {
 #pragma unroll
-          for (int i = 0; i < kRowsPer; ++i)
-            acc[i][g] = fmaf(hv[i].w, w.w, fmaf(hv[i].z, w.z,
-                        fmaf(hv[i].y, w.y, fmaf(hv[i].x, w.x, acc[i][g]))));
+            for (int e = 0; e < kHPer; ++e) {
+              const int i = tid + e * kThreads;
+              const int r = i / kChunk, k = i % kChunk;
+              h_pre[e] = r < nrows && k0 + k < H ? __ldcg(prev + (r0 + r) * stride + k0 + k) : 0.f;
+            }
+          }
+        };
+        auto stash = [&](float* s) {
+#pragma unroll
+          for (int e = 0; e < kWPer; ++e) {
+            const int i = tid + e * kThreads;
+            const int u = i % kUnits, g = (i / kUnits) % 3, k = i / (3 * kUnits);
+            s[(((k >> 2) * 3 + g) * kUnits + u) * 4 + (k & 3)] = w_pre[e];
+          }
+          float* hs = s + kChunkW;
+          if (vec) {
+#pragma unroll
+            for (int e = 0; e < kHPer / 4; ++e) {
+              const int i = tid + e * kThreads;
+              const int r = i / (kChunk / 4), q = i % (kChunk / 4);
+              *reinterpret_cast<float4*>(hs + r * kChunkLd + 4 * q) =
+                  make_float4(h_pre[4 * e], h_pre[4 * e + 1], h_pre[4 * e + 2], h_pre[4 * e + 3]);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < kHPer; ++e) {
+              const int i = tid + e * kThreads;
+              hs[(i / kChunk) * kChunkLd + i % kChunk] = h_pre[e];
+            }
+          }
+        };
+        const int n_chunks = (H + kChunk - 1) / kChunk;
+        fetch(0);
+        stash(stage[0]);
+        __syncthreads();
+        for (int c = 0; c < n_chunks; ++c) {
+          if (c + 1 < n_chunks) fetch(c + 1);  // in flight during this chunk's products
+          const float* s = stage[c & 1];
+          accumulate(acc, reinterpret_cast<const float4*>(s), s + kChunkW, kChunkLd,
+                     kChunk / 4, tx, ty);
+          if (c + 1 < n_chunks) stash(stage[(c + 1) & 1]);
+          __syncthreads();  // chunk c + 1 stored; chunk c's stage free again
         }
       }
 
@@ -193,7 +312,7 @@ gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict_
           const float rg = sigmoidf(g_cur[i][0] + (acc[i][0] + b_r));
           const float zg = sigmoidf(g_cur[i][1] + (acc[i][1] + b_z));
           const float ng = tanhf(g_cur[i][2] + rg * (acc[i][2] + b_n));
-          const float h = (1.f - zg) * ng + zg * h_s[r * ldh + j];
+          const float h = (1.f - zg) * ng + zg * (kStream ? h_old[i] : h_s[r * ldh + j]);
           outs[(row * T + t) * H + j] = h;
           if (t == T - 1) h_last[row * H + j] = h;
         }
@@ -217,9 +336,10 @@ gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict_
 }  // namespace
 
 // Runs the T steps as one cooperative launch on `stream` of ceil(H / 16) x G
-// blocks of 16 x 16 threads with `smem_bytes` of dynamic shared memory, G =
-// the row groups that fit on the card beside the unit slices, at most
-// ceil(B / 32); `counters` holds ceil(B / 32) zeroed words.  Returns a
+// blocks of 16 x 16 threads with `smem_bytes` of dynamic shared memory (the
+// resident layout up to H = 724, the streamed one past it), G = the row
+// groups that fit on the card beside the unit slices, at most ceil(B / 32);
+// `counters` holds ceil(B / 32) zeroed words.  Returns a
 // cudaError_t (0 on success): cudaErrorCooperativeLaunchTooLarge when the
 // blocks cannot all be resident at once, which the barrier needs.  The
 // launch goes through cudaLaunchKernelEx, so a CUDA graph can capture it.
@@ -229,7 +349,8 @@ extern "C" int v2t_fused_gru_sequence_f32(const void* gi, const void* wh, const 
                                           const void* h0, void* outs, void* h_last,
                                           void* counters, int B, int T, int H, int smem_bytes,
                                           void* stream) {
-  auto kernel = gru_persistent_f32_kernel;
+  auto kernel = H <= kMaxResidentHidden ? gru_persistent_f32_kernel<false>
+                                        : gru_persistent_f32_kernel<true>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -11,16 +11,22 @@ enc [B, L, De], dec [B, Dd], We [De, A], Wd [Dd, A], v [A, 1], vb [1] ->
 float32 only.
 
 The kernel is ``csrc/additive_attention.cu`` (its note gives the bound and
-the design).  ``fused_additive_attention`` checks its inputs the same way on
-every device, takes the plain version only for tensors on the CPU, and for
-CUDA tensors launches the kernel or raises — there is no fallback.
-``fused_additive_attention.launches`` counts the kernel launches.
+the design): two launches a call, a grouped GEMM for h = enc·We and s =
+dec·Wd on the tensor cores in 3xTF32 (three TF32 ``wgmma`` products per
+multiply-add, their sum restarted each 32-deep chunk and the chunks added in
+float32), then one block per batch row for the energies, the softmax and the
+scaling.  ``launch_plan`` picks the GEMM's tile width from the shape.
+``fused_additive_attention`` checks its inputs the same way on every device,
+takes the plain version only for tensors on the CPU, and for CUDA tensors
+launches the kernel or raises — there is no fallback.
+``fused_additive_attention.launches`` counts the calls that launched it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -28,7 +34,14 @@ from visuelle2_tpu_torch.ops.cuda import _build
 
 _MAX_SMEM_BYTES = 232448  # 227 KB: what one Hopper block may use
 WEIGHT_ON = ("inputs", "projected")
-_THREADS = 256  # csrc/additive_attention.cu: kThreads
+# csrc/additive_attention.cu: the GEMM's tile rows and column widths, and
+# the attend block's warps.
+_BM, _BNS = 128, (128, 104, 64, 32)
+_ATTEND_WARPS = 32
+_H100_SMS = 132
+# The cost model's fixed cost of a tile, in columns of work: loading and
+# splitting its 128 rows of enc, which every tile does whatever its width.
+_TILE_OVERHEAD = 64
 
 
 def fused_additive_attention_plain(enc, dec, we, wd, v, vb, *, weight_on: str = "inputs"):
@@ -42,17 +55,25 @@ def fused_additive_attention_plain(enc, dec, we, wd, v, vb, *, weight_on: str = 
     return alpha[..., None] * base, alpha
 
 
-def _tile(rows: int):
-    """(rows, columns) of h each energy thread keeps, by the B·L rows of the
-    call; a block covers 16× as many of each.  Few rows (the fused tokens)
-    take small tiles, so that the call still has many blocks."""
-    return (1, 4) if rows <= 2048 else (8, 8)
+def launch_plan(B: int, L: int, De: int, Dd: int, A: int, *, projected: bool,
+                sms: int = _H100_SMS) -> dict:
+    """How a call runs: the GEMM's tile width (bn columns of 128 rows),
+    where h goes and the attend block's shared memory.
 
-
-def _smem_bytes(L: int) -> int:
-    """Dynamic shared memory of the softmax block; layout in
-    csrc/additive_attention.cu (the other three kernels' is static, under 48 KB)."""
-    return 4 * (L + _THREADS // 32)
+    The GEMM's tiles are the ceil(B·L / 128) row tiles of enc and the
+    ceil(B / 128) of dec, each by ceil(A / bn) column tiles, at one block an
+    SM on ``sms`` SMs.  bn is the one that least costs the SM with the most
+    tiles, ceil(tiles / sms) x (bn + a tile's fixed cost), the wider on a
+    tie.  h goes to out itself ("projected"), to out's rows when they are
+    wide enough ("inputs", A <= De: launch 2 overwrites them), else to a
+    scratch [B, L, A] (``h_in_out`` false); s = dec·Wd always to a scratch
+    [B, A]."""
+    rows = -(-(B * L) // _BM) + -(-B // _BM)
+    bn = min(_BNS, key=lambda n: math.ceil(rows * -(-A // n) / sms) * (n + _TILE_OVERHEAD))
+    h_in_out = projected or A <= De
+    return {"bn": bn, "h_in_out": h_in_out,
+            "ldh": A if projected or not h_in_out else De,
+            "smem_attend": 4 * (2 * A + L + _ATTEND_WARPS)}
 
 
 def _validate(named, *, weight_on: str) -> None:
@@ -83,16 +104,16 @@ def _validate(named, *, weight_on: str) -> None:
         if not t.is_contiguous():
             raise ValueError(f"fused_additive_attention needs contiguous inputs; "
                              f"{name} is not")
-    smem = _smem_bytes(L)
+    smem = launch_plan(B, L, De, Dd, A, projected=weight_on == "projected")["smem_attend"]
     if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"L={L} needs {smem} bytes of shared memory per block, more "
+        raise ValueError(f"L={L}, A={A} needs {smem} bytes of shared memory per block, more "
                          f"than the {_MAX_SMEM_BYTES} a block may use")
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = _build.load_library()
-    fn = lib.v2t_fused_additive_attention_f32
+    fn = lib.v2t_additive_attention_f32
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -110,20 +131,35 @@ def fused_additive_attention(enc, dec, we, wd, v, vb, *, weight_on: str = "input
     B, L, De = enc.shape
     Dd, A = wd.shape
     projected = weight_on == "projected"
-    lib, fn = _kernel()
+    plan = launch_plan(B, L, De, Dd, A, projected=projected,
+                       sms=torch.cuda.get_device_properties(enc.device).multi_processor_count)
+    result = _launch(named, projected, plan)
+    fused_additive_attention.launches += 1
+    return result
+
+
+def buffers(enc, A: int, projected: bool, plan: dict):
+    """The call's outputs and scratch by ``plan``: out [B, L, Dw], α [B, L],
+    s = dec·Wd [B, A], and h (out itself, or [B, L, A])."""
+    B, L, De = enc.shape
     out = enc.new_empty(B, L, A if projected else De)
-    alpha = enc.new_empty(B, L)
-    rows, cols = _tile(B * L)
-    # Scratch: S = dec @ Wd, and one partial energy per block of 16·cols
-    # columns of A.
-    s = enc.new_empty(B, A)
-    e_part = enc.new_empty(B, -(-A // (16 * cols)), L)
+    h = out if plan["h_in_out"] else enc.new_empty(B, L, A)
+    return out, enc.new_empty(B, L), enc.new_empty(B, A), h
+
+
+def _launch(named, projected: bool, plan: dict):
+    """Run the kernel on validated CUDA inputs by ``plan``."""
+    enc, wd = named["enc"], named["wd"]
+    B, L, De = enc.shape
+    Dd, A = wd.shape
+    lib, fn = _kernel()
+    out, alpha, s, h = buffers(enc, A, projected, plan)
     with torch.cuda.device(enc.device):
         stream = torch.cuda.current_stream(enc.device).cuda_stream
-        code = fn(*(t.data_ptr() for t in (*named.values(), out, alpha, s, e_part)),
-                  B, L, De, Dd, A, int(projected), rows, cols, _smem_bytes(L), stream)
+        code = fn(*(t.data_ptr() for t in (*named.values(), out, alpha, s, h)),
+                  B, L, De, Dd, A, plan["ldh"], int(projected), plan["bn"],
+                  plan["smem_attend"], stream)
     _build.check(lib, code, "fused_additive_attention")
-    fused_additive_attention.launches += 1
     return out, alpha
 
 

@@ -8,15 +8,20 @@ As in the JAX wrapper, the input projection ``gi = x @ W_i + b_i`` is one
 ``torch.matmul`` before the kernel, which runs only the recurrence.
 
 The kernel is ``csrc/gru_seq.cu`` (its note gives the bound and the design):
-one persistent launch whose blocks each keep a slice of W_h in shared memory
-for all T steps.  It takes any B >= 1, T >= 1 and I, and H up to
-``MAX_HIDDEN`` (724), where a block's W_h slice and h tile pass the 227 KB of
-shared memory a block may use; every GRU of the port (H <= 512) fits.
+one persistent, cooperative launch of ceil(H / 16) unit slices x row groups.
+Up to ``RESIDENT_MAX_HIDDEN`` (724) each block keeps its W_h slice and h tile
+in shared memory for all T steps (every GRU of the port, H <= 512, takes
+this layout); past it, where they no longer fit a block's 227 KB, each step
+streams them from L2 in 64-deep k-chunks.  It takes any B >= 1, T >= 1 and
+I, and H up to ``max_hidden`` of the card's SMs (``MAX_HIDDEN``, 2,112 on an
+H100 SXM): 16 units a block on each SM, all resident at once as the step
+barrier needs.
 ``fused_gru_sequence`` checks its inputs the same way on every device and
 takes the plain version (the step loop of ``ops/gru.py``, any H) only for
 tensors on the CPU; off the CPU it also holds H to the kernel's limit, and
-for CUDA tensors it launches the kernel or raises — there is no fallback.  ``fused_gru_sequence.launches`` counts the calls that launched the
-kernel (one launch each, after the input GEMM).
+for CUDA tensors it launches the kernel or raises — there is no fallback.
+``fused_gru_sequence.launches`` counts the calls that launched the kernel
+(one launch each, after the input GEMM).
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from visuelle2_tpu_torch.ops.gru import gru_sequence
 
 _MAX_SMEM_BYTES = 232448  # 227 KB: what one Hopper block may use
 _UNITS, _ROWS = 16, 32  # csrc/gru_seq.cu: a block's hidden units, a row tile's rows
+_CHUNK = 64             # csrc/gru_seq.cu: kChunk, k of one streamed chunk
+_H100_SMS = 132
 
 
 # The step loop of ``ops/gru.py``: the CPU path and the kernel's reference.
@@ -50,15 +57,33 @@ def cudnn_gru(w_i, w_h, b_i, b_h) -> torch.nn.GRU:
     return gru.eval()
 
 
-def smem_bytes(H: int) -> int:
-    """Dynamic shared memory of one block; layout in csrc/gru_seq.cu: the
-    W_h slice (3 gates x 16 units x H, k padded to 4) and the h tile (32
-    rows of H padded to 4, plus 4)."""
+def _resident_bytes(H: int) -> int:
     h4 = 4 * -(-H // 4)
     return 4 * (3 * _UNITS * h4 + _ROWS * (h4 + 4))
 
 
-MAX_HIDDEN = max(h for h in range(1, 1024) if smem_bytes(h) <= _MAX_SMEM_BYTES)
+# The widest H whose W_h slice and h tile stay in a block's shared memory.
+RESIDENT_MAX_HIDDEN = max(h for h in range(1, 1024) if _resident_bytes(h) <= _MAX_SMEM_BYTES)
+
+
+def max_hidden(sms: int = _H100_SMS) -> int:
+    """The widest H whose unit slices a card of ``sms`` SMs holds at once,
+    one block an SM: what the step barrier needs."""
+    return _UNITS * sms
+
+
+MAX_HIDDEN = max_hidden()  # an H100 SXM's
+
+
+def smem_bytes(H: int) -> int:
+    """Dynamic shared memory of one block; layouts in csrc/gru_seq.cu.  Up
+    to ``RESIDENT_MAX_HIDDEN``: the W_h slice (3 gates x 16 units x H, k
+    padded to 4) and the h tile (32 rows of H padded to 4, plus 4).  Past
+    it: two stages of a 64-deep k-chunk of each (3 x 16 x 64 and 32 x 68
+    floats), whatever H."""
+    if H <= RESIDENT_MAX_HIDDEN:
+        return _resident_bytes(H)
+    return 4 * 2 * (3 * _UNITS * _CHUNK + _ROWS * (_CHUNK + 4))
 
 
 def _validate(named) -> None:
@@ -106,10 +131,13 @@ def fused_gru_sequence(x, w_i, w_h, b_i, b_h, h0=None):
         return gru_sequence(x, w_i, w_h, b_i, b_h, h0)
     B, T, I = x.shape
     H = w_h.shape[0]
+    sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
+           if x.device.type == "cuda" else _H100_SMS)
+    if H > max_hidden(sms):
+        raise ValueError(f"H={H}: the kernel takes H <= {max_hidden(sms)}, {_UNITS} hidden "
+                         f"units a block with every block resident at once, one on each of "
+                         f"the card's {sms} SMs")
     smem = smem_bytes(H)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"H={H} needs {smem} bytes of shared memory per block, more "
-                         f"than the {_MAX_SMEM_BYTES} a block may use (H <= {MAX_HIDDEN})")
     if x.device.type != "cuda":
         raise ValueError(f"fused_gru_sequence runs on cuda or cpu, not {x.device}")
     lib, fn = _kernel()

@@ -16,9 +16,11 @@ from visuelle2_tpu_torch.ops.cuda.read_reduce import TILE_M
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {
     "f32": 67e12,     # float32 outside the tensor cores
+    "tf32": 494.7e12,  # tensor cores
     "bf16": 989e12,   # tensor cores
     "int8": 1979e12,  # tensor cores
 }
+TF32_PRODUCTS_PER_F32 = 3  # 3xTF32: lo·hi + hi·lo + hi·hi to float32 accuracy
 
 
 def bound_ms(n_bytes: float, ops: float, kind: str = "f32"):
@@ -26,6 +28,16 @@ def bound_ms(n_bytes: float, ops: float, kind: str = "f32"):
     bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * ops / PEAK_OPS_PER_S[kind]
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def f32_accurate_bound_ms(n_bytes: float, ops: float):
+    """``bound_ms`` for float32 work that the card may do either outside the
+    tensor cores or as three TF32 tensor-core products per multiply-add
+    (3xTF32, which keeps float32's accuracy): the operations take the lesser
+    of the two times.  Every operation is counted as a product, as the
+    products dominate each kernel this bounds."""
+    return min(bound_ms(n_bytes, ops, "f32"),
+               bound_ms(n_bytes, TF32_PRODUCTS_PER_F32 * ops, "tf32"))
 
 
 def gated_residual_cost(B: int, D: int, C: int):

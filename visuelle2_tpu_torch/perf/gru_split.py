@@ -19,8 +19,12 @@ barrier's counters, as the wrapper does):
   the barrier alone.
 
 The variants compute wrong answers by design; they exist only to be timed.
+The whole kernel's outputs are printed as a SHA-256 digest: ``--source``
+builds another revision of ``csrc/gru_seq.cu`` instead (with the same entry
+point), so that two revisions can be held to the same bits and timed in one
+run.
 
-    python -m visuelle2_tpu_torch.perf.gru_split
+    python -m visuelle2_tpu_torch.perf.gru_split [--source FILE]
 
 It runs on the card and raises "no CUDA device" without one.
 """
@@ -29,7 +33,9 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -46,24 +52,26 @@ VARIANTS = {
     "no_h_loads": (("r < nrows ? __ldcg(reinterpret_cast<const float4*>",
                     "false ? __ldcg(reinterpret_cast<const float4*>"),),
     "no_w_loads": (("const float4 w = w4[(q * 3 + g) * kUnits + tx];",
-                    "const float4 w = make_float4(b_r, b_z, b_n, (float)(q + g));"),),
+                    "const float4 w = make_float4(tx, ty, g, q);"),),
     "no_products": (("for (int q = 0; q < nq; ++q) {", "for (int q = 0; q < 0; ++q) {"),),
 }
 SHAPE = dict(B=128, T=52, I=3, H=512)  # the trend GRU's
 
 
-def variant_sources(text: str) -> dict:
+def variant_sources(text: str, source: Path = SOURCE) -> dict:
     """Each variant's source; raises if the kernel no longer holds a line a
     variant replaces."""
-    return variants.variant_sources(text, VARIANTS, SOURCE)
+    return variants.variant_sources(text, VARIANTS, source)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--source", type=Path, default=SOURCE,
+                    help="the GRU kernel source to split (default: the checkout's)")
     ap.add_argument("--target_s", type=float, default=0.2)
     opts = ap.parse_args(argv)
     dev = resolve_device(None)
-    libs = variants.build_variants({"gru": (SOURCE, VARIANTS)})["gru"]
+    libs = variants.build_variants({"gru": (opts.source, VARIANTS)})["gru"]
     B, T, I, H = (SHAPE[k] for k in "BTIH")
     rng = np.random.default_rng(0)
     f = lambda *s: torch.from_numpy(
@@ -75,7 +83,7 @@ def main(argv=None):
     counters = torch.zeros(-(-B // gru_seq._ROWS), dtype=torch.int32, device=dev)
     smem = gru_seq.smem_bytes(H)
     results = {"device": timing.device_record(dev), "method": timing.METHOD, "shape": SHAPE,
-               "us": {}}
+               "source": str(opts.source), "us": {}}
     for name, lib in libs.items():
         fn = lib.v2t_fused_gru_sequence_f32
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -90,9 +98,15 @@ def main(argv=None):
             if code:
                 raise RuntimeError(f"gru_split: {name}: CUDA error {code}")
 
+        if name == "whole":
+            call()
+            torch.cuda.synchronize(dev)
+            results["whole_outs_sha256"] = hashlib.sha256(
+                outs.cpu().numpy().tobytes() + h_last.cpu().numpy().tobytes()).hexdigest()
         results["us"][name] = 1e6 * timing.seconds_per_call(call, [()], device=dev,
                                                             target_s=opts.target_s)
-    print(json.dumps(results["us"]), flush=True)
+    print(json.dumps({k: results[k] for k in ("device", "source", "whole_outs_sha256", "us")}),
+          flush=True)
     return results
 
 
