@@ -9,11 +9,17 @@ then, each phase printing one JSON line and any failure exiting non-zero:
 
 1. device       — the card, its power limit, the kernel library's build time;
 2. kernel       — ``fused_gated_residual`` against its plain PyTorch version
-   (TF32 off, atol 1e-5) at the main-path and ragged shapes;
-3. mha_kernel   — ``fused_gated_mha`` against its plain version (TF32 off,
-   atol 2e-5, rtol 1e-5), both variants, gcd-masked and unmasked, at the
-   gated_v2 shapes (B=128, D=64, 4 heads; 52/52 head, 1/52 and 12/52 pure)
-   and at a ragged one (B=37, D=48);
+   (TF32 off, atol 1e-5) at the main-path shape, ragged ones, B = 1 and
+   4,096, D = 1,024, no context (C = 0), 515 KB of weights (4 x 256 x 256)
+   and D not a multiple of 4; one launch a call and the same bits twice;
+3. mha_kernel   — ``fused_gated_mha`` (one thread-block cluster a batch
+   row) against its plain version (TF32 off, atol 2e-5, rtol 1e-5), both
+   variants, gcd-masked and unmasked, at the gated_v2 shapes (B=128, D=64,
+   4 heads; 52/52 head, 1/52 and 12/52 pure), ragged ones (B=37, D=48),
+   1, 2, 8 and 16 heads at D = 64, d = 12, Lk = 100, key and value two
+   tensors, equal data in three tensors, the unstaged layout (D = 4,096)
+   and a query row with every key masked (NaN where plain gives NaN); one
+   launch a call and the same bits twice at every shape;
 4. forward      — the full-width gated_v4 demand forecaster (ResNet-101 at
    299², bf16 backbone, E=32, H=64, B=128, random weights from a seeded
    generator) through ``make_forecaster``: finite [128, 12] forecasts, two
@@ -504,10 +510,12 @@ def main():
         fused_gated_residual as kernel,
         fused_gated_residual_plain as plain,
     )
+    from visuelle2_tpu_torch.ops.cuda.gated_fusion import launch_plan as kernel_plan
     from visuelle2_tpu_torch.ops.cuda.gated_mha import (
         fused_gated_mha as mha,
         fused_gated_mha_plain as mha_plain,
     )
+    from visuelle2_tpu_torch.ops.cuda.gated_mha import launch_plan as mha_plan
     from visuelle2_tpu_torch.ops.cuda.gru_seq import (
         cudnn_gru,
         fused_gru_sequence as gru_kernel,
@@ -547,47 +555,86 @@ def main():
 
     # 2. gated residual vs plain ---------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
-    errs = {}
-    for Bk, D, C in ((B, 32, 128), (37, 48, 96), (3, 64, 512)):
+    errs, same_bits = {}, {}
+    for Bk, D, C in ((B, 32, 128), (37, 48, 96), (3, 64, 512), (1, 32, 128), (4096, 32, 128),
+                     (8, 1024, 64), (B, 32, 0), (4, 256, 256), (5, 33, 7)):
         x, ctx = (torch.randn(Bk, n, device=dev, generator=gen) for n in (D, C))
         wx = torch.randn(D, D, device=dev, generator=gen) * 0.1
         wc = torch.randn(C, D, device=dev, generator=gen) * 0.1
         b = torch.randn(D, device=dev, generator=gen)
+        key = f"{Bk}x{D}x{C}"
         for residual in (True, False):
+            before = kernel.launches
             got = kernel(x, ctx, wx, wc, b, residual=residual)
+            again = kernel(x, ctx, wx, wc, b, residual=residual)
             want = plain(x, ctx, wx, wc, b, residual=residual)
             torch.cuda.synchronize()
-            errs[f"{Bk}x{D}x{C}/residual={residual}"] = (got - want).abs().max().item()
-    _emit({"phase": "kernel", "max_abs_err": errs, "tol": KERNEL_ATOL})
+            _require(kernel.launches == before + 2, f"gated residual launch count at {key}")
+            errs[f"{key}/residual={residual}"] = (got - want).abs().max().item()
+            same_bits[key] = same_bits.get(key, True) and torch.equal(got, again)
+    _emit({"phase": "kernel", "max_abs_err": errs, "tol": KERNEL_ATOL,
+           "second_call_bit_identical": same_bits,
+           "plan_main_path": kernel_plan(B, 32, 128, vec=4)})
     _require(max(errs.values()) <= KERNEL_ATOL, f"kernel disagrees with plain: {errs}")
+    _require(all(same_bits.values()), f"gated residual: two calls differ: {same_bits}")
 
     # 3. gated MHA vs plain --------------------------------------------------------
-    mha_errs, mha_bad = {}, []
-    for variant, (Bk, Lq, Lk, D), masked in (
-            ("head", (B, 52, 52, 64), True), ("head", (B, 52, 52, 64), False),
-            ("pure", (B, 1, 52, 64), False), ("pure", (B, 12, 52, 64), False),
-            ("pure", (B, 52, 52, 64), True),
-            ("head", (37, 52, 52, 48), True), ("pure", (37, 12, 52, 48), False),
-            ("pure", (37, 52, 52, 48), True)):
-        G = D // 4 if variant == "head" else D
+    mha_errs, mha_bad, mha_same_bits = {}, [], {}
+    for variant, (Bk, Lq, Lk, D, heads), masked, kv in (
+            ("head", (B, 52, 52, 64, 4), True, "same"), ("head", (B, 52, 52, 64, 4), False, "same"),
+            ("pure", (B, 1, 52, 64, 4), False, "same"), ("pure", (B, 12, 52, 64, 4), False, "same"),
+            ("pure", (B, 52, 52, 64, 4), True, "same"),
+            ("head", (37, 52, 52, 48, 4), True, "same"),
+            ("pure", (37, 12, 52, 48, 4), False, "same"),
+            ("pure", (37, 52, 52, 48, 4), True, "same"),
+            # one CTA a row; 2, 8 and 16 heads (two a CTA) at D = 64; d = 12
+            ("head", (B, 52, 52, 64, 1), True, "same"), ("head", (B, 52, 52, 64, 2), True, "same"),
+            ("head", (B, 52, 52, 64, 8), True, "same"), ("head", (B, 52, 52, 64, 16), True, "same"),
+            ("head", (16, 52, 52, 48, 4), True, "same"),
+            ("head", (16, 100, 100, 64, 4), True, "same"),
+            ("pure", (16, 12, 100, 64, 4), False, "same"),
+            ("pure", (B, 1, 52, 64, 4), False, "distinct"),  # key and value two tensors
+            ("head", (16, 52, 52, 64, 4), True, "equal"),   # equal data, three tensors
+            ("pure", (2, 1, 1, 4096, 1), False, "distinct"),  # the unstaged layout
+            ("pure", (16, 12, 52, 64, 4), False, "masked_row")):
+        G = D // heads if variant == "head" else D
         query = torch.randn(Bk, Lq, D, device=dev, generator=gen)
-        kv = query if Lq == Lk else torch.randn(Bk, Lk, D, device=dev, generator=gen)
+        if kv == "same":
+            key = value = query if Lq == Lk else torch.randn(Bk, Lk, D, device=dev, generator=gen)
+        elif kv == "equal":
+            key, value = query.clone(), query.clone()
+        else:
+            key, value = (torch.randn(Bk, Lk, D, device=dev, generator=gen) for _ in range(2))
         mask = gcd_block_mask(Lq, 12, device=dev) if masked else torch.zeros(Lq, Lk, device=dev)
+        if kv == "masked_row":  # a query row with every key masked: NaN, as plain gives
+            mask[5] = float("-inf")
         weights = []
         for n in (D, D, D, G, D):
             weights += [torch.randn(n, n, device=dev, generator=gen) * n ** -0.5,
                         torch.randn(n, device=dev, generator=gen) * 0.1]
-        args = (query, kv, kv, mask, *weights)
-        got = mha(*args, num_heads=4, variant=variant)
-        want = mha_plain(*args, num_heads=4, variant=variant)
+        args = (query, key, value, mask, *weights)
+        before = mha.launches
+        got = mha(*args, num_heads=heads, variant=variant)
+        again = mha(*args, num_heads=heads, variant=variant)
+        want = mha_plain(*args, num_heads=heads, variant=variant)
         torch.cuda.synchronize()
-        key = f"{variant}/{Bk}x{Lq}x{Lk}x{D}/{'gcd' if masked else 'unmasked'}"
-        mha_errs[key], ok = _mha_err(got, want)
+        name = f"{variant}/{Bk}x{Lq}x{Lk}x{D}/{heads}h/{'gcd' if masked else 'unmasked'}/{kv}"
+        _require(mha.launches == before + 2, f"gated MHA launch count at {name}")
+        nan = torch.isnan(want)
+        _require(torch.equal(torch.isnan(got), nan) and (kv == "masked_row") == bool(nan.any()),
+                 f"gated MHA NaNs at {name}")
+        mha_errs[name], ok = _mha_err(got[~nan], want[~nan])
+        mha_same_bits[name] = torch.equal(got.nan_to_num(), again.nan_to_num())
         if not ok:
-            mha_bad.append(key)
+            mha_bad.append(name)
     _emit({"phase": "mha_kernel", "max_abs_err": mha_errs, "atol": MHA_ATOL,
-           "rtol": MHA_RTOL})
+           "rtol": MHA_RTOL, "second_call_bit_identical": mha_same_bits,
+           "plans_main_path": {v: {k: p for k, p in mha_plan(B, Lq, 52, 64, 4, v, stage_k=Lq != 52,
+                                                              stage_v=False).items()
+                                   if k != "fields"}
+                               for v, Lq in (("head", 52), ("pure", 1))}})
     _require(not mha_bad, f"gated MHA kernel disagrees with plain at {mha_bad}: {mha_errs}")
+    _require(all(mha_same_bits.values()), f"gated MHA: two calls differ: {mha_same_bits}")
 
     # 4. full-width gated_v4 forward through the serving callable ------------------
     model = build("gated_v4", device=dev, generator=torch.Generator().manual_seed(0),

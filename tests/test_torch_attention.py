@@ -21,6 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from visuelle2_tpu.ops import attention as jattn
 from visuelle2_tpu.ops import masks as jmasks
+from visuelle2_tpu.ops.pallas.gated_mha import fused_gated_mha as j_fused_gated_mha
 from visuelle2_tpu_torch.convert import load_jax_variables
 from visuelle2_tpu_torch.ops import attention as tattn
 from visuelle2_tpu_torch.ops.cuda import gated_mha as tgm
@@ -141,9 +142,11 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(rng, bad):
     elif bad == "mixed_device":
         args[6] = args[6].to("meta")
     elif bad == "smem":
-        # 6·64·256 + 64·257 + 16·64 floats: 463,104 bytes, over the 232,448
-        # a Hopper block may use.
-        args = _wrapper_args(rng, B=1, Lq=64, Lk=64, Dm=256)
+        # The unstaged layout at Lq = Lk = 300, D = 256 (4 heads of 64): a
+        # CTA's 300 x 64 merged context, q, kᵀ, v and probabilities, and its
+        # 300 x 256 partial outputs: 384,000 bytes, over the 232,448 a Hopper
+        # block may use.
+        args = _wrapper_args(rng, B=1, Lq=300, Lk=300, Dm=256)
     elif bad == "gate_shape":
         kw["variant"] = "head"  # the pure [D, D] gate is not the head [d, d] one
     elif bad == "mask_shape":
@@ -182,3 +185,230 @@ def test_gated_mha_bound_from_shapes():
     assert by == "operations" and abs(ms - 320_339_968 / 67e12 * 1e3) < 1e-12
     ms, by = roofline.bound_ms(*pure)
     assert by == "operations" and abs(ms - 113_901_568 / 67e12 * 1e3) < 1e-12
+
+
+# The kernel's cluster split: (CTAs a batch row, heads a CTA).
+@pytest.mark.parametrize("num_heads,split", [(1, (1, 1)), (2, (2, 1)), (4, (4, 1)),
+                                             (8, (8, 1)), (16, (8, 2)), (64, (8, 8)),
+                                             (3, (3, 1)), (9, (3, 3)), (12, (6, 2)),
+                                             (11, (1, 11))])
+def test_cluster_split(num_heads, split):
+    assert tgm.cluster_split(num_heads) == split
+    ncta, hpc = split
+    assert ncta * hpc == num_heads and ncta <= 8
+
+
+def test_launch_plan_at_the_main_path_shapes():
+    """gated_v2's calls: 512 CTAs in clusters of 4, staged, every query row
+    in one block, and shared memory for five CTAs an SM (the kernel's
+    launch bounds), so all 512 are resident at once on 132 SMs."""
+    head = tgm.launch_plan(128, 52, 52, 64, 4, "head", stage_k=False, stage_v=False)
+    pure = tgm.launch_plan(128, 1, 52, 64, 4, "pure", stage_k=True, stage_v=False)
+    for plan, threads in ((head, 160), (pure, 128)):
+        assert plan["staged"] and plan["cluster"] == 4 and plan["heads_per_cta"] == 1
+        assert plan["grid"] == 512 and plan["threads"] == threads
+        assert 5 * (plan["smem_bytes"] + 1024) <= 233472  # an SM's 228 KB, 1 KB a CTA reserved
+    assert head["qb"] == 52 and pure["qb"] == 1
+    # One tensor staged once: the trend encoder's query is its key and value.
+    apart = tgm.launch_plan(128, 52, 52, 64, 4, "head")
+    assert apart["smem_bytes"] - head["smem_bytes"] == 2 * 4 * 52 * 68
+
+
+def _one_block_smem(Lq, Lk, D):
+    """The dynamic shared memory the kernel's earlier design needed: one
+    block of 512 threads a batch row, query, key, value and their
+    projections staged."""
+    return 4 * (3 * Lq * D + 3 * Lk * D + Lk * (D + 1) + 16 * Lk)
+
+
+def _one_block_shapes():
+    """(Lq, Lk, D, heads) the earlier design accepted on CUDA, at the edges
+    of its range: each D with 1, 2, 4, 8 and 16 heads and one a column where
+    they divide it, Lq and Lk from 1 to the largest that fitted."""
+    limit = 232448
+    largest = lambda f: max(n for n in range(1, 4096) if f(n) <= limit)
+    for D in (1, 2, 3, 4, 12, 16, 48, 64, 96, 256, 1024, 8192):
+        both = largest(lambda n: _one_block_smem(n, n, D))
+        keys = largest(lambda n: _one_block_smem(1, n, D))
+        queries = largest(lambda n: _one_block_smem(n, 1, D))
+        lengths = {(1, 1), (both, both), (1, keys), (queries, 1), (min(12, both), min(52, both))}
+        for heads in sorted({h for h in (1, 2, 4, 8, 16, D) if D % h == 0}):
+            for Lq, Lk in sorted(lengths):
+                assert _one_block_smem(Lq, Lk, D) <= limit
+                yield Lq, Lk, D, heads
+
+
+def test_launch_plan_takes_every_shape_the_one_block_kernel_took():
+    """The range does not narrow: each shape the earlier design accepted gets
+    a plan within 227 KB, whichever of query, key and value are one tensor,
+    with whole warps, at most 8 CTAs a cluster and one per head group."""
+    n = 0
+    for Lq, Lk, D, heads in _one_block_shapes():
+        for variant in tgm.VARIANTS:
+            for stage_k, stage_v in ((True, True), (True, False), (False, False)):
+                if not stage_k and Lq != Lk:
+                    continue
+                plan = tgm.launch_plan(3, Lq, Lk, D, heads, variant, stage_k=stage_k,
+                                       stage_v=stage_v)
+                assert plan["smem_bytes"] <= 232448, (Lq, Lk, D, heads, plan)
+                assert plan["threads"] % 32 == 0 and 64 <= plan["threads"] <= 160
+                assert plan["cluster"] * plan["heads_per_cta"] == heads
+                assert plan["grid"] == 3 * plan["cluster"] and 1 <= plan["qb"] <= Lq
+                n += 1
+    assert n > 700
+
+
+def _intervals(plan, Lq, Lk, D, variant):
+    """The shared-memory arrays of a plan as name -> [start, end) in floats."""
+    f = dict(zip(tgm.PLAN_FIELDS, plan["fields"]))
+    hpc, W, qb = f["hpc"], f["width"], f["qb"]
+    iv = {"m": (f["m"], f["m"] + Lq * f["ldm"]),
+          "q": (f["q"], f["q"] + f["qhs"] * hpc), "kt": (f["kt"], f["kt"] + f["khs"] * hpc),
+          "v": (f["v"], f["v"] + f["vhs"] * hpc), "p": (f["p"], f["p"] + f["phs"] * hpc),
+          "ri": (f["ri"], f["ri"] + hpc * qb),
+          "y": (f["y"], f["y"] + f["ncta"] * Lq * f["ldy"])}
+    if plan["staged"]:
+        G = f["kw"] if variant == "pure" else f["kd"]
+        iv.update(bias=(f["bias"], f["bias"] + 4 * f["kw"] + G),
+                  xq=(f["xq"], f["xq"] + Lq * f["ldx"]), xk=(f["xk"], f["xk"] + Lk * f["ldx"]),
+                  xv=(f["xv"], f["xv"] + Lk * f["ldx"]),
+                  wq=(f["wq"], f["wq"] + f["kx"] * f["ldw"]),
+                  wk=(f["wk"], f["wk"] + f["kx"] * f["ldw"]),
+                  wv=(f["wv"], f["wv"] + f["kx"] * f["ldw"]),
+                  wg=(f["wg"], f["wg"] + (f["kx"] if variant == "pure" else f["kd"]) * f["ldg"]),
+                  wo=(f["wo"], f["wo"] + f["kw"] * f["ldo"]))
+    return f, iv
+
+
+@pytest.mark.parametrize("shape", [
+    (52, 52, 64, 4, "head", False, False), (1, 52, 64, 4, "pure", True, False),
+    (12, 52, 48, 4, "pure", True, True), (30, 60, 16, 16, "head", True, True),
+    (124, 124, 64, 4, "head", False, False), (9, 7, 4096, 8, "head", True, True),
+    (1, 1, 4096, 1, "pure", True, True), (2421, 2421, 1, 1, "pure", True, True),
+])
+def test_launch_plan_keeps_live_arrays_apart(shape):
+    """Arrays in use at once never share shared memory: while the inputs
+    are staged and projected, while the attention runs (Wo's rows arriving
+    over the staged operands), and while the partial outputs are pushed and
+    summed.  Staged offsets and strides are whole float4s, the padding a
+    product reads is in the zeroed range, and every array fits."""
+    Lq, Lk, D, heads, variant, stage_k, stage_v = shape
+    plan = tgm.launch_plan(4, Lq, Lk, D, heads, variant, stage_k=stage_k, stage_v=stage_v)
+    f, iv = _intervals(plan, Lq, Lk, D, variant)
+    assert max(end for _, end in iv.values()) * 4 <= plan["smem_bytes"] <= 232448
+    staging = ["xq", "wq", "wk", "wv"] + (["xk"] if stage_k else []) \
+        + (["xv"] if stage_v else []) + (["wg"] if variant == "pure" else [])
+    phases = {"projections": ["m", "q", "kt", "v"], "attention": ["m", "q", "kt", "v", "p", "ri"],
+              "output": ["m", "y"]}
+    if plan["staged"]:
+        phases["projections"] += ["bias"] + staging + (["wg"] if variant == "head" else [])
+        phases["attention"] += ["bias", "wo"] + (["wg"] if variant == "head" else [])
+        phases["output"] += ["bias", "wo"]
+        assert all(f[n] % 4 == 0 for n in ("bias", "m", "q", "kt", "v", "p", "xq", "xk", "xv",
+                                            "wq", "wk", "wv", "wg", "wo", "y", "zero_end"))
+        assert all(f[n] % 4 == 0 for n in ("ldq", "ldkt", "ldv", "ldp", "ldm", "ldx", "ldw",
+                                            "ldg", "ldo"))
+        assert f["zero_begin"] <= iv["m"][0] and iv["v"][1] <= f["zero_end"]
+        assert iv["bias"][1] <= f["zero_begin"]
+    for phase, names in phases.items():
+        spans = sorted(iv[n] for n in set(names))
+        for (a0, a1), (b0, b1) in zip(spans, spans[1:]):
+            assert a1 <= b0, (phase, names, spans)
+
+
+def test_plan_fields_are_the_kernels_struct():
+    """PLAN_FIELDS names csrc/gated_mha.cu's struct Plan, field by field."""
+    import re
+
+    from visuelle2_tpu_torch.ops.cuda import _build
+
+    text = (_build.SRC_DIR / "gated_mha.cu").read_text()
+    body = text[text.index("struct Plan {"):text.index("};", text.index("struct Plan {"))]
+    fields = [name for line in body.splitlines()[1:]
+              for name in re.findall(r"\b(\w+)\s*[,;]", line.split("//")[0])]
+    assert tuple(fields) == tgm.PLAN_FIELDS
+
+
+def _emulate_cluster(query, key, value, mask, wq, bq, wk, bk, wv, bv, wg, bg, wo, bo, *,
+                     num_heads, variant):
+    """The CUDA kernel's order of sums, in torch: each CTA of the cluster
+    (``cluster_split``) takes its heads' columns of the projections, their
+    attention (the context from exp(s - max) times 1 / the row sum) and
+    gate, and its partial output merged · Wo[its rows]; the partials are
+    summed in rank order, then bo is added."""
+    ncta, hpc = tgm.cluster_split(num_heads)
+    d = query.shape[-1] // num_heads
+    W = hpc * d
+    y = None
+    for rank in range(ncta):
+        cols = slice(rank * W, (rank + 1) * W)
+        q, k, v = (x @ w[:, cols] + b[cols] for x, w, b in ((query, wq, bq), (key, wk, bk),
+                                                             (value, wv, bv)))
+        merged = []
+        for h in range(hpc):
+            hc = slice(h * d, (h + 1) * d)
+            s = q[..., hc] @ k[..., hc].transpose(1, 2) * d ** -0.5 + mask
+            e = torch.exp(s - s.amax(-1, keepdim=True))
+            ctx = e @ v[..., hc] * (1 / e.sum(-1, keepdim=True))
+            if variant == "head":
+                gate = torch.sigmoid(q[..., hc] @ wg + bg)
+            else:
+                gate = torch.sigmoid(query @ wg[:, cols][:, hc] + bg[cols][hc])
+            merged.append(ctx * gate)
+        part = torch.cat(merged, -1) @ wo[cols]
+        y = part if y is None else y + part
+    return y + bo
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("variant,Lq,Dm,heads", [
+    ("head", 52, 16, 4),    # the trend encoder's self-attention: 4 CTAs a row
+    ("pure", 1, 16, 4),     # the decoder's cross-attention
+    ("pure", 12, 16, 4),
+    ("head", 52, 16, 16),   # 8 CTAs of 2 heads
+    ("pure", 12, 12, 3),    # 3 CTAs of d = 4
+])
+def test_cluster_order_of_sums_matches_jax_pallas_interpret(rng, variant, Lq, Dm, heads, masked):
+    """The per-CTA partial outputs summed over the cluster in rank order
+    against the JAX Pallas kernel in interpret mode, at 1e-5."""
+    B, Lk = 3, 52
+    f = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
+    query = f(B, Lq, Dm)
+    kv = query if Lq == Lk else f(B, Lk, Dm)
+    mask = (np.array(jmasks.gcd_block_mask(Lq, 12)) if masked and Lq == Lk
+            else np.zeros((Lq, Lk), np.float32))
+    if masked and Lq != Lk:
+        mask[:, ::5] = -np.inf
+    G = Dm // heads if variant == "head" else Dm
+    weights = []
+    for n in (Dm, Dm, Dm, G, Dm):
+        weights += [f(n, n, scale=n ** -0.5), f(n, scale=0.1)]
+    args = [query, kv, kv, mask.astype(np.float32), *weights]
+    want = j_fused_gated_mha(*args, num_heads=heads, variant=variant, interpret=True)
+    got = _emulate_cluster(*map(torch.from_numpy, args), num_heads=heads, variant=variant)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+def test_gated_split_variants_apply_to_the_kernel_sources(tmp_path):
+    """perf/gated_split.py's variants each edit the checkout's kernel
+    sources; a source that lacks a line a variant replaces raises."""
+    import shutil
+    from pathlib import Path
+
+    from visuelle2_tpu_torch.perf import gated_split
+
+    root = Path(tgm.__file__).resolve().parents[3]
+    sources = gated_split.variant_sources(root, gated_split.VARIANTS)
+    whole = sources.pop("whole")
+    assert set(whole) == {gated_split.MHA, gated_split.FUSION}
+    for name, texts in sources.items():
+        edited = {f for f in texts if texts[f] != whole[f]}
+        assert edited == set(gated_split.VARIANTS[name]), name
+    csrc = tmp_path / "visuelle2_tpu_torch" / "csrc"
+    csrc.mkdir(parents=True)
+    for f in whole:
+        shutil.copy(root / "visuelle2_tpu_torch" / "csrc" / f, csrc / f)
+    (csrc / gated_split.MHA).write_text(whole[gated_split.MHA].replace(
+        "for (int i0 = 0; i0 < Lq; i0 += p.qb) {", "for (;;) {"))
+    with pytest.raises(RuntimeError, match="no_attention"):
+        gated_split.variant_sources(tmp_path, gated_split.VARIANTS)

@@ -48,8 +48,17 @@ def _inputs(B, D, C, seed=0):
 
 
 @pytest.mark.parametrize("residual", [True, False])
-# (3, 64, 512) stages 157 KB of weights: dynamic shared memory above 48 KB.
-@pytest.mark.parametrize("shape", [(128, 32, 128), (37, 48, 96), (3, 64, 512)])
+@pytest.mark.parametrize("shape", [
+    (128, 32, 128),   # gated_v4's TG-Fusion
+    (37, 48, 96),     # ragged batch, another width
+    (3, 64, 512),     # a wide context: many k-splits
+    (1, 32, 128),     # one row
+    (4096, 32, 128),  # four rows a CTA
+    (8, 1024, 64),    # D = 1024: 8 column tiles of 128
+    (128, 32, 0),     # no context
+    (4, 256, 256),    # 515 KB of weights: past what the earlier design could stage
+    (5, 33, 7),       # D not a multiple of 4: one column a unit
+])
 def test_kernel_matches_plain(residual, shape):
     arrays = _inputs(*shape)
     before = tgf.fused_gated_residual.launches
@@ -60,13 +69,26 @@ def test_kernel_matches_plain(residual, shape):
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 
+def test_kernel_on_unaligned_weights_and_twice():
+    """Weights at an address that is not 16-byte aligned take one column a
+    unit; two calls on the same inputs give the same bits (a fixed order of
+    sums, no atomics)."""
+    x, ctx, wx, wc, b = _inputs(64, 32, 128)
+    wx_off = torch.empty(32 * 32 + 1, device="cuda")[1:].view(32, 32)
+    wx_off.copy_(wx)
+    assert wx_off.data_ptr() % 16 != 0
+    got = tgf.fused_gated_residual(x, ctx, wx_off, wc, b)
+    again = tgf.fused_gated_residual(x, ctx, wx_off, wc, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, tgf.fused_gated_residual_plain(x, ctx, wx, wc, b),
+                               atol=ATOL, rtol=0)
+
+
 def test_kernel_rejects_what_it_cannot_take():
     x, ctx, wx, wc, b = _inputs(8, 32, 128)
     with pytest.raises(ValueError, match="contiguous"):
         tgf.fused_gated_residual(x.t().contiguous().t(), ctx, wx, wc, b)
-    big = _inputs(4, 256, 256)  # 515 KB of shared memory: more than a block may use
-    with pytest.raises(ValueError, match="shared memory"):
-        tgf.fused_gated_residual(*big)
 
 
 def test_no_fallback_without_the_kernel(monkeypatch):
@@ -82,37 +104,85 @@ def test_no_fallback_without_the_kernel(monkeypatch):
         tgf._kernel.cache_clear()
 
 
-def _mha_inputs(B, Lq, Lk, D, heads, variant, masked, seed=0):
+def _mha_inputs(B, Lq, Lk, D, heads, variant, masked, seed=0, kv="same"):
+    """kv: "same" passes one tensor as key and value (and as query where
+    Lq == Lk), as the model path does; "distinct" three tensors; "equal"
+    three distinct tensors with equal data."""
     rng = np.random.default_rng(seed)
     f = lambda *s, scale=1.0: torch.from_numpy(
         (rng.standard_normal(s) * scale).astype(np.float32)).cuda()
     query = f(B, Lq, D)
-    key = query if Lq == Lk else f(B, Lk, D)
+    if kv == "same":
+        key = value = query if Lq == Lk else f(B, Lk, D)
+    elif kv == "distinct":
+        key, value = f(B, Lk, D), f(B, Lk, D)
+    else:
+        key = query.clone() if Lq == Lk else f(B, Lk, D)
+        value = key.clone()
     mask = (gcd_block_mask(Lq, 12) if masked else torch.zeros(Lq, Lk)).cuda()
     G = D // heads if variant == "head" else D
     weights = []
     for n in (D, D, D, G, D):
         weights += [f(n, n, scale=n ** -0.5), f(n, scale=0.1)]
-    return [query, key, key, mask, *weights]
+    return [query, key, value, mask, *weights]
 
 
-@pytest.mark.parametrize("variant,shape,masked", [
-    ("head", (128, 52, 52, 64, 4), True),    # gated_v2 trend encoder
-    ("head", (128, 52, 52, 64, 4), False),
-    ("pure", (128, 1, 52, 64, 4), False),    # decoder cross-attention, non-AR
-    ("pure", (128, 12, 52, 64, 4), False),   # decoder cross-attention, AR
-    ("pure", (37, 52, 52, 48, 4), True),     # ragged batch, another width
-    ("head", (37, 12, 52, 48, 4), False),
+@pytest.mark.parametrize("variant,shape,masked,kv", [
+    ("head", (128, 52, 52, 64, 4), True, "same"),    # gated_v2 trend encoder
+    ("head", (128, 52, 52, 64, 4), False, "same"),
+    ("pure", (128, 1, 52, 64, 4), False, "same"),    # decoder cross-attention, non-AR
+    ("pure", (128, 12, 52, 64, 4), False, "same"),   # decoder cross-attention, AR
+    ("pure", (37, 52, 52, 48, 4), True, "same"),     # ragged batch, another width
+    ("head", (37, 12, 52, 48, 4), False, "same"),
+    # one CTA a row; two, eight and sixteen heads (two a CTA) at D = 64
+    ("head", (128, 52, 52, 64, 1), True, "same"),
+    ("head", (128, 52, 52, 64, 2), True, "same"),
+    ("head", (128, 52, 52, 64, 8), True, "same"),
+    ("head", (128, 52, 52, 64, 16), True, "same"),
+    ("pure", (128, 1, 52, 64, 16), False, "same"),
+    ("head", (16, 52, 52, 48, 4), True, "same"),     # d = 12
+    ("head", (16, 100, 100, 64, 4), True, "same"),   # Lk = 100
+    ("pure", (16, 12, 100, 64, 4), False, "same"),
+    ("pure", (128, 1, 52, 64, 4), False, "distinct"),
+    ("head", (16, 52, 52, 64, 4), True, "equal"),    # equal data, three tensors
+    ("pure", (16, 1, 52, 64, 4), False, "equal"),
+    ("head", (4, 20, 30, 64, 64), False, "distinct"),  # d = 1: 8 heads a CTA
+    ("head", (3, 124, 124, 64, 4), True, "same"),    # the earlier design's largest L at D = 64
+    ("pure", (2, 1, 1, 4096, 1), False, "distinct"),  # unstaged: weights read in place
+    ("head", (2, 9, 7, 4096, 8), False, "distinct"),
 ])
-def test_gated_mha_kernel_matches_plain(variant, shape, masked):
+def test_gated_mha_kernel_matches_plain(variant, shape, masked, kv):
     B, Lq, Lk, D, heads = shape
-    args = _mha_inputs(B, Lq, Lk, D, heads, variant, masked)
+    args = _mha_inputs(B, Lq, Lk, D, heads, variant, masked, kv=kv)
     before = tgm.fused_gated_mha.launches
     got = tgm.fused_gated_mha(*args, num_heads=heads, variant=variant)
     torch.cuda.synchronize()
     assert tgm.fused_gated_mha.launches == before + 1
     want = tgm.fused_gated_mha_plain(*args, num_heads=heads, variant=variant)
     torch.testing.assert_close(got, want, atol=MHA_ATOL, rtol=MHA_RTOL)
+
+
+@pytest.mark.parametrize("variant", ["head", "pure"])
+def test_gated_mha_fully_masked_row_and_same_bits(variant):
+    """A query row whose keys are all masked gives NaN in both the kernel and
+    the plain version (softmax over -inf), and the other rows agree; two
+    calls give the same bits (the cluster sums its partials in rank order,
+    no atomics)."""
+    args = _mha_inputs(16, 12, 52, 64, 4, variant, False, kv="distinct")
+    args[3][5] = float("-inf")
+    before = tgm.fused_gated_mha.launches
+    got = tgm.fused_gated_mha(*args, num_heads=4, variant=variant)
+    again = tgm.fused_gated_mha(*args, num_heads=4, variant=variant)
+    torch.cuda.synchronize()
+    assert tgm.fused_gated_mha.launches == before + 2
+    want = tgm.fused_gated_mha_plain(*args, num_heads=4, variant=variant)
+    assert torch.isnan(want[:, 5]).all() and not torch.isnan(want[:, :5]).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, atol=MHA_ATOL, rtol=MHA_RTOL, equal_nan=True)
+    assert torch.equal(got.nan_to_num(), again.nan_to_num())
+    main = _mha_inputs(128, 52, 52, 64, 4, "head", True)
+    assert torch.equal(tgm.fused_gated_mha(*main, num_heads=4, variant="head"),
+                       tgm.fused_gated_mha(*main, num_heads=4, variant="head"))
 
 
 def test_gated_mha_no_fallback_without_the_kernel(monkeypatch):

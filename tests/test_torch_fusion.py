@@ -170,3 +170,86 @@ def test_pure_gated_fusion_gate_starts_open():
     init_parameters(m, torch.Generator().manual_seed(0))
     np.testing.assert_array_equal(m.gate_fc.bias.detach().numpy(), 2.0)
     np.testing.assert_array_equal(m.fusion_fc.bias.detach().numpy(), 0.0)
+
+
+@pytest.mark.parametrize("shape,vec,plan", [
+    # gated_v4's TG-Fusion: 8 float4 units, 4 k-splits a warp, 5 warps
+    ((128, 32, 128), 4, dict(cub=8, warps=5, splits=20, rows=1, grid=(128, 1))),
+    ((4096, 32, 128), 4, dict(cub=8, warps=5, splits=20, rows=4, grid=(1024, 1))),
+    ((1, 32, 128), 4, dict(cub=8, warps=5, splits=20, rows=1, grid=(1, 1))),
+    ((200, 32, 128), 4, dict(cub=8, warps=5, splits=20, rows=1, grid=(200, 1))),
+    ((300, 32, 128), 4, dict(cub=8, warps=5, splits=20, rows=2, grid=(150, 1))),
+    ((8, 1024, 64), 4, dict(cub=32, warps=8, splits=8, rows=1, grid=(8, 8))),
+    ((128, 32, 0), 4, dict(cub=8, warps=1, splits=4, rows=1, grid=(128, 1))),
+    ((5, 33, 7), 1, dict(cub=32, warps=5, splits=5, rows=1, grid=(5, 2))),
+    ((4, 256, 256), 4, dict(cub=32, warps=8, splits=8, rows=1, grid=(4, 2))),
+    ((3, 2, 5), 1, dict(cub=2, warps=1, splits=16, rows=1, grid=(3, 1))),
+])
+def test_gated_residual_launch_plan(shape, vec, plan):
+    """Units of ``vec`` columns, a power-of-two column tile of up to 32
+    units, k-splits of about eight of the D + C terms, one row a CTA until
+    the grid would pass two CTAs an SM of an H100."""
+    got = tgf.launch_plan(*shape, vec=vec)
+    assert got == dict(plan, vec=vec)
+    B, D, C = shape
+    assert got["grid"][1] * got["cub"] * vec >= D and got["grid"][0] * got["rows"] >= B
+    assert got["splits"] == 32 // got["cub"] * got["warps"] and 32 * got["warps"] <= 256
+
+
+def _staged_residual_accepts(D, C):
+    """What the earlier design took on CUDA: one thread a column (D <= 1024)
+    and Wx, Wc, b and a tile of rows staged within 227 KB."""
+    rows = max(1, 256 // D)
+    return D <= 1024 and 4 * (D * D + C * D + D + rows * (D + C)) <= 232448
+
+
+def test_gated_residual_plan_over_the_old_range_and_past_it():
+    """Every shape the earlier design took has a plan; so do wider ones (the
+    kernel stages nothing), up to the grid's 65,535 column tiles."""
+    shapes = [(B, D, C) for B in (1, 37, 128, 4096) for D in (1, 3, 32, 48, 64, 255, 256, 1024)
+              for C in (0, 1, 96, 128, 512, 4096)]
+    taken = [s for s in shapes if _staged_residual_accepts(*s[1:])]
+    assert len(taken) > 60 and len(taken) < len(shapes)
+    for B, D, C in shapes:
+        plan = tgf.launch_plan(B, D, C, vec=4 if D % 4 == 0 else 1)
+        assert plan["grid"][0] * plan["rows"] >= B
+    with pytest.raises(ValueError, match="column tiles"):
+        tgf.launch_plan(1, 4 * 32 * 65535 + 4, 0, vec=4)
+
+
+def _emulate_split_sum(x, ctx, wx, wc, b, *, residual, plan):
+    """The CUDA kernel's order of sums, in torch: k-split s (of S) sums the
+    terms k = s, s + S, ... of [x, ctx]·[Wx; Wc] in order; the 32 / cub
+    splits of a warp meet in a shuffle butterfly, then the warps' partials
+    are added in order, then b; the gate follows."""
+    a, w = torch.cat([x, ctx], 1), torch.cat([wx, wc], 0)
+    S, ksub, warps = plan["splits"], 32 // plan["cub"], plan["warps"]
+    part = []
+    for s in range(S):
+        acc = torch.zeros(x.shape[0], w.shape[1])
+        for k in range(s, a.shape[1], S):
+            acc = acc + a[:, k:k + 1] * w[k]
+        part.append(acc)
+    total = None
+    for warp in range(warps):
+        lanes = part[warp * ksub:(warp + 1) * ksub]
+        off = ksub // 2
+        while off:
+            lanes = [lanes[i] + lanes[i ^ off] for i in range(ksub)]
+            off //= 2
+        total = lanes[0] if total is None else total + lanes[0]
+    g = torch.sigmoid(total + b)
+    return x + x * g if residual else x * g
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("shape", [(37, 32, 128), (5, 48, 96), (9, 33, 7), (4, 16, 3)])
+def test_split_sum_matches_pallas_interpret(rng, residual, shape):
+    """The kernel's k-split sums against the JAX Pallas kernel in interpret
+    mode, at 1e-5."""
+    B, D, C = shape
+    arrays = _inputs(rng, B=B, D=D, C=C)
+    want = j_fused(*map(jnp.asarray, arrays), residual=residual, block_b=16, interpret=True)
+    plan = tgf.launch_plan(B, D, C, vec=4 if D % 4 == 0 else 1)
+    got = _emulate_split_sum(*map(torch.from_numpy, arrays), residual=residual, plan=plan)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)

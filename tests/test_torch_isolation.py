@@ -54,6 +54,7 @@ def test_importing_the_port_loads_no_jax():
         "import visuelle2_tpu_torch.perf.timing, visuelle2_tpu_torch.perf.roofline\n"
         "import visuelle2_tpu_torch.perf.convfloor, visuelle2_tpu_torch.perf.convfloor_v2\n"
         "import visuelle2_tpu_torch.perf.gemm_split, visuelle2_tpu_torch.perf.gru_split\n"
+        "import visuelle2_tpu_torch.perf.additive_split, visuelle2_tpu_torch.perf.gated_split\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(n for n in new if n.split('.')[0] in %r)\n"
         "assert 'jax' not in sys.modules and not bad, bad\n"
@@ -78,7 +79,7 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("module", ["roofline", "convfloor_v2", "convfloor", "gemm_split",
-                                    "gru_split"])
+                                    "gru_split", "gated_split"])
 def test_harness_clis_need_cuda(module, tmp_path):
     """``python -m visuelle2_tpu_torch.perf.<module>`` raises without a card
     and, with no ``--out``, writes no file."""

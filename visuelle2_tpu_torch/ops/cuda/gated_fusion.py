@@ -10,9 +10,12 @@ x [B, D], ctx [B, C], Wx [D, D], Wc [C, D], b [D]; float32 only (the main
 path feeds f32: the pooled image mean is cast to f32 before the fusion).
 
 The kernel is ``csrc/gated_fusion.cu`` (its note gives the bound and the
-design).  ``fused_gated_residual`` takes the plain version only for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises — there is no
-fallback.  ``fused_gated_residual.launches`` counts the kernel launches.
+design): each output's (D + C)-long sum cut into interleaved k-splits over
+lanes and warps, summed in a fixed order.  ``launch_plan`` sizes the grid
+and the splits.  ``fused_gated_residual`` takes the plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises —
+there is no fallback.  ``fused_gated_residual.launches`` counts the kernel
+launches.
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ import torch
 
 from visuelle2_tpu_torch.ops.cuda import _build
 
-_THREADS_PER_BLOCK = 256
-_MAX_SMEM_BYTES = 232448  # 227 KB: what one Hopper block may use
+_WARP, _MAX_WARPS = 32, 8
+_TERMS = 8       # about this many terms in each k-split's partial sum
+_H100_SMS = 132
+_MAX_GRID_Y = 65535
 
 
 def fused_gated_residual_plain(x, ctx, wx, wc, b, *, residual: bool = True):
@@ -35,9 +40,27 @@ def fused_gated_residual_plain(x, ctx, wx, wc, b, *, residual: bool = True):
     return x + gated if residual else gated
 
 
-def _smem_bytes(D: int, C: int, rows: int) -> int:
-    """Dynamic shared memory of one block; layout in csrc/gated_fusion.cu."""
-    return 4 * (D * D + C * D + D + rows * (D + C))
+def launch_plan(B: int, D: int, C: int, *, vec: int, sms: int = _H100_SMS) -> dict:
+    """How a call runs (csrc/gated_fusion.cu): ``vec`` columns a unit (4
+    where D % 4 == 0 and the weights are 16-byte aligned, else 1); ``cub``
+    units a CTA's column tile, the least power of two up to 32 that holds
+    them; its lanes split into the units and ``32 // cub`` k-splits, and
+    ``warps`` warps (up to 8) make ``splits`` k-splits of about 8 of the
+    D + C terms each; ``rows`` rows a CTA, the fewest of 1, 2 and 4 that
+    keep the grid within two CTAs an SM; ``grid`` (row tiles, column
+    tiles).  Raises ValueError past the 65,535 column tiles a grid may have
+    (D over 8.3 million)."""
+    units = D // vec
+    cub = min(_WARP, 1 << max(0, units - 1).bit_length())
+    ksub = _WARP // cub
+    warps = min(_MAX_WARPS, max(1, -(-(D + C) // (ksub * _TERMS))))
+    col_tiles = -(-units // cub)
+    if col_tiles > _MAX_GRID_Y:
+        raise ValueError(f"D={D} needs {col_tiles} column tiles, more than the "
+                         f"{_MAX_GRID_Y} a grid may have")
+    rows = next((r for r in (1, 2) if -(-B // r) * col_tiles <= 2 * sms), 4)
+    return {"vec": vec, "cub": cub, "warps": warps, "splits": ksub * warps, "rows": rows,
+            "grid": (-(-B // rows), col_tiles)}
 
 
 def _validate(x, ctx, wx, wc, b) -> None:
@@ -63,7 +86,7 @@ def _validate(x, ctx, wx, wc, b) -> None:
 def _kernel():
     lib = _build.load_library()
     fn = lib.v2t_fused_gated_residual_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -81,20 +104,16 @@ def fused_gated_residual(x, ctx, wx, wc, b, *, residual: bool = True):
             raise ValueError(f"fused_gated_residual needs contiguous inputs; {name} is not")
     B, D = x.shape
     C = ctx.shape[1]
-    if D > 1024:
-        raise ValueError(f"D={D} > 1024: one thread per output column per block")
-    rows = max(1, _THREADS_PER_BLOCK // D)
-    smem = _smem_bytes(D, C, rows)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"D={D}, C={C} needs {smem} bytes of shared memory per "
-                         f"block, more than the {_MAX_SMEM_BYTES} a block may use")
+    aligned = wx.data_ptr() % 16 == 0 and (C == 0 or wc.data_ptr() % 16 == 0)
+    plan = launch_plan(B, D, C, vec=4 if D % 4 == 0 and aligned else 1,
+                       sms=torch.cuda.get_device_properties(x.device).multi_processor_count)
     lib, fn = _kernel()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), ctx.data_ptr(), wx.data_ptr(), wc.data_ptr(),
-                  b.data_ptr(), out.data_ptr(), B, D, C, rows, smem,
-                  int(residual), stream)
+                  b.data_ptr(), out.data_ptr(), B, D, C, int(residual), plan["rows"],
+                  plan["vec"], plan["cub"], plan["warps"], stream)
     _build.check(lib, code, "fused_gated_residual")
     fused_gated_residual.launches += 1
     return out

@@ -12,7 +12,10 @@ query [B, Lq, D], key/value [B, Lk, D], mask [Lq, Lk] additive (zeros for
 no mask), weights in the JAX ``[in, out]`` layout; float32 only.
 
 The kernel is ``csrc/gated_mha.cu`` (its note gives the bound and the
-design).  ``fused_gated_mha`` checks its inputs the same way on every device,
+design): one thread-block cluster per batch row, one CTA per group of heads,
+the CTAs' partial outputs summed over the cluster in rank order.
+``launch_plan`` computes the cluster, the threads and the shared-memory
+layout.  ``fused_gated_mha`` checks its inputs the same way on every device,
 takes the plain version only for tensors on the CPU, and for CUDA tensors
 launches the kernel or raises — there is no fallback.
 ``fused_gated_mha.launches`` counts the kernel launches.
@@ -28,9 +31,16 @@ import torch
 from visuelle2_tpu_torch.ops.cuda import _build
 from visuelle2_tpu_torch.ops.heads import merge_heads, split_heads
 
-_THREADS_PER_BLOCK = 512
 _MAX_SMEM_BYTES = 232448  # 227 KB: what one Hopper block may use
+_MAX_CLUSTER = 8          # CTAs: the portable cluster size
+_MIN_THREADS, _MAX_THREADS = 64, 160  # csrc/gated_mha.cu: kMaxThreads
 VARIANTS = ("pure", "head")
+# csrc/gated_mha.cu's struct Plan, field by field.
+PLAN_FIELDS = ("ncta", "hpc", "width", "d", "qb", "kd", "kk", "kw", "kx",
+               "q", "ldq", "qhs", "kt", "ldkt", "khs", "v", "ldv", "vhs", "p", "ldp", "phs",
+               "ri", "bias", "m", "ldm", "y", "ldy", "zero_begin", "zero_end",
+               "xq", "xk", "xv", "ldx", "wq", "wk", "wv", "ldw", "wg", "ldg", "wo", "ldo",
+               "stage_k", "stage_v")
 
 
 def fused_gated_mha_plain(query, key, value, mask, wq, bq, wk, bk, wv, bv,
@@ -50,10 +60,135 @@ def fused_gated_mha_plain(query, key, value, mask, wq, bq, wk, bk, wv, bv,
     return merged @ wo + bo
 
 
-def _smem_bytes(Lq: int, Lk: int, D: int) -> int:
-    """Dynamic shared memory of one block; layout in csrc/gated_mha.cu."""
-    warps = _THREADS_PER_BLOCK // 32
-    return 4 * (3 * Lq * D + 3 * Lk * D + Lk * (D + 1) + warps * Lk)
+def cluster_split(num_heads: int):
+    """(CTAs per cluster, heads per CTA): the fewest heads a CTA that keep a
+    batch row's cluster within the portable 8 CTAs."""
+    hpc = next(h for h in range(1, num_heads + 1)
+               if num_heads % h == 0 and num_heads // h <= _MAX_CLUSTER)
+    return num_heads // hpc, hpc
+
+
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _spread(ld: int) -> int:
+    """A row stride that puts rows 4 apart in distinct banks (float4 reads)."""
+    return ld + 4 if ld % 8 == 0 else ld
+
+
+def _layout(Lq, Lk, D, num_heads, pure, staged, qb, stage_k, stage_v):
+    """The Plan's fields and the dynamic shared memory in bytes.
+
+    In floats, each array 16-byte aligned: the staged biases | merged | q |
+    kᵀ | v (zeroed first when staged: the padding) | the staged head gate |
+    the staged inputs and weight slices, or, once the projections are done
+    with them, a query block's mask and then scores and probabilities, and
+    the staged rows of Wo.  The cluster's partial outputs of this CTA's
+    columns, y [ncta][Lq][W], lie over q onwards, short of Wo's rows: the
+    cluster is done with its attention when they are written."""
+    ncta, hpc = cluster_split(num_heads)
+    d = D // num_heads
+    W = hpc * d
+    pad = _r4 if staged else (lambda n: n)
+    kd, kk, kw, kx = pad(d), pad(Lk), pad(W), pad(D)
+    ldq = _spread(kd) if staged else d
+    ldp = _spread(kk) if staged else Lk
+    ldm = _spread(kw) if staged else W
+    ldkt = kk
+    f = dict.fromkeys(PLAN_FIELDS, 0)
+    f.update(ncta=ncta, hpc=hpc, width=W, d=d, qb=qb, kd=kd, kk=kk, kw=kw, kx=kx,
+             ldq=ldq, qhs=Lq * ldq, ldkt=ldkt, khs=kd * ldkt, ldv=ldq, vhs=kk * ldq,
+             ldp=ldp, phs=qb * ldp, ldm=ldm, ldy=W, stage_k=int(stage_k),
+             stage_v=int(stage_v))
+    end = 0
+
+    def take(n):
+        nonlocal end
+        start, end = end, end + _r4(n)
+        return start
+
+    if staged:
+        f["bias"] = take(4 * kw + (kw if pure else kd))
+        f["zero_begin"] = end
+    f["m"] = take(Lq * ldm)
+    f["q"] = take(hpc * Lq * ldq)
+    f["kt"] = take(hpc * kd * ldkt)
+    f["v"] = take(hpc * kk * ldq)
+    if staged:
+        f["zero_end"] = end
+        if not pure:
+            f["wg"], f["ldg"] = take(kd * kd), kd
+    f["p"] = end
+    f["ri"] = end + _r4(hpc * qb * ldp)
+    p_end = f["ri"] + _r4(hpc * qb)
+    if staged:
+        f["ldx"] = ldx = _spread(kx)
+        f["xq"] = take(Lq * ldx)
+        f["xk"] = take(Lk * ldx) if stage_k else f["xq"]
+        f["xv"] = take(Lk * ldx) if stage_v else f["xk"]
+        f["ldw"] = kw
+        f["wq"], f["wk"], f["wv"] = (take(kx * f["ldw"]) for _ in range(3))
+        if pure:
+            f["wg"], f["ldg"] = take(kx * f["ldw"]), f["ldw"]
+    f["y"] = f["q"]
+    y_end = f["y"] + _r4(Lq * D)
+    end = max(end, p_end, y_end)
+    if staged:  # Wo's rows arrive once the projections are done, past P and y
+        f["wo"], f["ldo"] = max(p_end, y_end), kx
+        end = max(end, f["wo"] + _r4(kw * f["ldo"]))
+    return f, 4 * end
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(B: int, Lq: int, Lk: int, D: int, num_heads: int, variant: str, *,
+                stage_k: bool = True, stage_v: bool = True) -> dict:
+    """How a call runs: one cluster of ``cluster`` CTAs per batch row (a grid
+    of ``grid`` CTAs of ``threads`` threads), ``heads_per_cta`` heads each;
+    the layout (``staged``: inputs and weights in shared memory, 16-byte
+    loads; else read where they lie); ``qb`` query rows per attention block;
+    ``smem_bytes``; and the Plan's ``fields``, in ``PLAN_FIELDS`` order.
+
+    ``stage_k`` false: key is query (one tensor); ``stage_v`` false: value
+    is key.  The staged layout where it fits in 227 KB with at least
+    min(Lq, 8) query rows a block, else the unstaged one; in either the most
+    query rows a block that fit.  Threads: one per micro-tile of the
+    projections, in whole warps, 64 to 160.  Raises ValueError where
+    neither layout fits."""
+    pure = variant == "pure"
+    ncta, hpc = cluster_split(num_heads)
+    d = D // num_heads
+    W = d * hpc
+    rt_q, rt_k = -(-Lq // 4), -(-Lk // 4)  # 4-row tiles
+    tiles = -(-W // 4) * ((2 if pure else 1) * rt_q + 2 * rt_k)  # the projections
+    threads = min(_MAX_THREADS, max(_MIN_THREADS, -(-tiles // 32) * 32))
+    args = (Lq, Lk, D, num_heads, pure)
+    for staged, least in ((True, min(Lq, 8)), (False, 1)):
+        def size(qb):
+            return _layout(*args, staged, qb, stage_k, stage_v)[1]
+
+        if size(least) > _MAX_SMEM_BYTES:
+            continue
+        lo, hi = least, Lq  # the most query rows a block that fit
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if size(mid) <= _MAX_SMEM_BYTES else (lo, mid - 1)
+        fields, smem = _layout(*args, staged, lo, stage_k, stage_v)
+        return {"staged": staged, "cluster": ncta, "heads_per_cta": hpc, "grid": B * ncta,
+                "threads": threads, "qb": lo, "smem_bytes": smem,
+                "fields": tuple(fields[n] for n in PLAN_FIELDS)}
+    smem = _layout(*args, False, 1, stage_k, stage_v)[1]
+    raise ValueError(f"Lq={Lq}, Lk={Lk}, D={D}, {num_heads} heads needs {smem} bytes of "
+                     f"shared memory per block, more than the {_MAX_SMEM_BYTES} a block "
+                     f"may use")
+
+
+def _stage_flags(query, key, value):
+    """(stage_k, stage_v): key is staged apart from query unless both are
+    one tensor's memory, value apart from key likewise.  Tensors with equal
+    data at other addresses stay two tensors."""
+    stage_k = not (key.data_ptr() == query.data_ptr() and key.shape == query.shape)
+    return stage_k, value.data_ptr() != key.data_ptr()
 
 
 def _validate(named, *, num_heads: int, variant: str) -> None:
@@ -88,18 +223,17 @@ def _validate(named, *, num_heads: int, variant: str) -> None:
     for name, t in named.items():
         if not t.is_contiguous():
             raise ValueError(f"fused_gated_mha needs contiguous inputs; {name} is not")
-    smem = _smem_bytes(Lq, Lk, D)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"Lq={Lq}, Lk={Lk}, D={D} needs {smem} bytes of shared memory "
-                         f"per block, more than the {_MAX_SMEM_BYTES} a block may use")
+    stage_k, stage_v = _stage_flags(query, key, value)
+    launch_plan(B, Lq, Lk, D, num_heads, variant, stage_k=stage_k, stage_v=stage_v)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = _build.load_library()
     fn = lib.v2t_fused_gated_mha_f32
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                                   ctypes.POINTER(ctypes.c_int)]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -118,6 +252,9 @@ def fused_gated_mha(query, key, value, mask, wq, bq, wk, bk, wv, bv, wg, bg, wo,
         raise ValueError(f"fused_gated_mha runs on cuda or cpu, not {query.device}")
     B, Lq, D = query.shape
     Lk = key.shape[1]
+    stage_k, stage_v = _stage_flags(query, key, value)
+    plan = launch_plan(B, Lq, Lk, D, num_heads, variant, stage_k=stage_k, stage_v=stage_v)
+    fields = (ctypes.c_int * len(PLAN_FIELDS))(*plan["fields"])
     lib, fn = _kernel()
     out = torch.empty_like(query)
     # d^-½ as the JAX package forms it: a Python float, rounded to float32.
@@ -125,8 +262,8 @@ def fused_gated_mha(query, key, value, mask, wq, bq, wk, bk, wv, bv, wg, bg, wo,
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
         code = fn(*(t.data_ptr() for t in named.values()), out.data_ptr(),
-                  B, Lq, Lk, D, num_heads, scale, int(variant == "head"),
-                  _THREADS_PER_BLOCK, _smem_bytes(Lq, Lk, D), stream)
+                  B, Lq, Lk, D, scale, int(variant == "head"), fields, len(PLAN_FIELDS),
+                  int(plan["staged"]), plan["threads"], plan["smem_bytes"], stream)
     _build.check(lib, code, "fused_gated_mha")
     fused_gated_mha.launches += 1
     return out
