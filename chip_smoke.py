@@ -82,6 +82,22 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    small width on the card (tiny backbone) against the CPU in f32: 3 and 30
    launches per forward;
 16. times_demand — Demand's forward times as in 6;
+16b. forecast_cli — a full-width synthetic split (1,000 rows, 4 rows a
+   photo, seed 0; the image store's cache written from seeded numpy pixels,
+   no JPEG) in a temporary directory under ``build/``, scored through the
+   port's ``forecast_transformer.main`` (gated_v4, bf16 backbone, B=128) and
+   ``forecast_dl.main`` (Demand, E=A=H=512): 1,000 finite forecasts, WAPE
+   and MAE within 1e-4 relative of a float64 host recomputation over the
+   same loader, exactly 2 ``fused_gated_residual`` and 36
+   ``fused_additive_attention`` launches a forward and no other kernel,
+   ``--one_pass 0`` within 1e-3 WAPE and 1e-4 MAE of the default, and
+   ``--dedup_images 0`` too in float32 (and within one bf16 ulp, relative,
+   with the bf16 backbone, which rounds differently at 32 photos a forward
+   than at 128: the phase prints 32 photos' pooled features encoded alone
+   against among 128, in bf16 and f32); forecasts/s beside phase 6 and
+   16's forward-only rate, the scored forward's device busy time,
+   the scoring pass's own rate on the host clock, GFLOPs per sample and
+   peak device memory;
 17. additive_kernel_times — per Demand call (L = 100, 52, 4), the kernel's
    and the plain version's device time per call, the kernel's per launch,
    launches per call and per forward, and the bounds (float32-accurate:
@@ -108,19 +124,23 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    beside the ``aten::cudnn_convolution`` ms of phase 6's gated_v4 forward,
    the artifact check, and the epilogue and chain ratios.
 
-Then the ``kernels`` line (seven kernels), the ``nvidia-smi`` line and,
+Then the ``kernels`` line (seven kernels; ``launches`` counts each row's
+own path, ``launches_forecast_cli`` the forecast CLIs' runs), the
+``nvidia-smi`` line and,
 last, the ``ok`` line.  Without a CUDA device it exits non-zero before
 printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import itertools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -164,6 +184,19 @@ DEMAND_ATTN_MAX_SHARE = 0.5
 BF16_GEMM_TOL = "one bf16 ulp (rtol 2^-7) + 2*K*2^-24*(|x|.|w|), the f32 reordering bound"
 HARNESS_TARGET_S = 0.2   # device seconds per harness measurement
 CROSS_ATTN_DIMS = dict(attention_dim=512, embedding_dim=512, hidden_dim=512)
+# The forecast CLIs' split: 1,000 rows, 4 rows a photo (250 photos at 299²),
+# so 8 batches of 128, the last with 104 real rows.
+CLI_ROWS, CLI_ROWS_PER_IMAGE = 1000, 4
+METRIC_RTOL = 1e-4          # score_split's device sums vs a float64 host recomputation
+# Dedup on and off, one-pass and per batch: the JAX CLI test's bounds, where
+# both runs do the same float32 arithmetic up to its order.
+SAME_WAPE_ATOL, SAME_MAE_ATOL = 1e-3, 1e-4
+# Dedup on and off with the bf16 backbone: it encodes 32 photos a forward
+# against 128, and cuDNN's bf16 convolutions round differently at the two
+# batch sizes (the pooled features of the same photo differ by one bf16 ulp,
+# where float32 differs by 6e-6), so the metrics are held to one bf16 ulp,
+# relative.
+BF16_SAME_RTOL = 2.0 ** -8
 
 
 def _require(cond, msg):
@@ -494,6 +527,175 @@ def _probe_kernel_checks(dev):
     return {"max_abs_err": errs, "by_shape": by_shape}
 
 
+def _host_metrics(model, loader, dev, norm_scalar):
+    """WAPE and MAE of ``model`` over ``loader`` recomputed in float64 numpy:
+    each batch's forecasts copied to the host, only the masked rows kept."""
+    from visuelle2_tpu_torch.eval.forecast import to_device
+    from visuelle2_tpu_torch.train.loop import target_and_pred
+
+    gts, preds = [], []
+    with torch.inference_mode():
+        for batch in loader:
+            batch = to_device(batch, dev)
+            target, pred = target_and_pred(batch, model(batch)[0])
+            keep = batch["mask"].cpu().numpy() > 0
+            gts.append(target.double().cpu().numpy()[keep])
+            preds.append(pred.double().cpu().numpy()[keep])
+    gt, pred = np.concatenate(gts) * norm_scalar, np.concatenate(preds) * norm_scalar
+    err = np.abs(gt - pred).sum()
+    return {"wape": 100.0 * err / np.abs(gt).sum(), "mae": err / gt.size, "rows": len(gt)}
+
+
+def _forecast_cli_phase(dev, card, zero_counts, counted, forward_rates, forward_busy_ms):
+    """Phase forecast_cli: a full-width synthetic split scored through the
+    port's two forecast CLIs on the card (see the module docstring).
+    ``counted`` names every kernel wrapper; ``forward_rates`` and
+    ``forward_busy_ms`` are phases 6 and 16's forward-only forecasts/s and
+    device busy ms a forward, by model."""
+    from visuelle2_tpu_torch.cli import common, forecast_dl, forecast_transformer
+    from visuelle2_tpu_torch.data.images import ImageStore
+    from visuelle2_tpu_torch.data.pipeline import load_label_dicts, load_visuelle2
+    from visuelle2_tpu_torch.data.synthetic import make_synthetic_dataset
+    from visuelle2_tpu_torch.eval.forecast import to_device
+    from visuelle2_tpu_torch.models import VocabSizes
+    from visuelle2_tpu_torch.utils.seeding import seed_everything
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    runs, checks, launches, rounding = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        t0 = time.perf_counter()
+        path = make_synthetic_dataset(tmp, num_train=0, num_test=CLI_ROWS, seed=0,
+                                      write_images=False, rows_per_image=CLI_ROWS_PER_IMAGE)
+        # The store's cache from seeded numpy pixels: no JPEG, no PIL.
+        paths = load_visuelle2(path, "test", demand=True, output_len=12).image_paths
+        unique, row_to_img = ImageStore.unique_paths(paths)
+        pixels = np.random.default_rng(0).integers(0, 256, (len(unique), IMAGE, IMAGE, 3),
+                                                   dtype=np.uint8)
+        ImageStore(pixels, row_to_img).write_cache(
+            ImageStore.cache_path(path, "test", IMAGE), paths)
+        setup_s = time.perf_counter() - t0
+        split = ["--dataset_path", path, "--batch_size", str(B), "--image_size", str(IMAGE)]
+        v4_f32 = ["--model", "gated_v4", "--demand", "1", "--output_len", "12", *split]
+        v4_argv = v4_f32 + ["--bf16_backbone"]
+        dl_argv = ["--new_product", "1", "--bf16_backbone", *split]
+
+        def run(label, cli, argv, model, per_forward):
+            zero_counts()
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                r = cli.main(argv)
+            wall = time.perf_counter() - t
+            counts = {name: w.launches for name, w in counted.items()}
+            launches[label] = counts
+            expected = {name: per_forward.get(name, 0) * r.forwards for name in counted}
+            checks[f"{label}: launches"] = counts == expected
+            checks[f"{label}: {CLI_ROWS} forecasts"] = r.num_forecasts == CLI_ROWS
+            checks[f"{label}: finite"] = bool(np.isfinite([r.wape, r.mae]).all())
+            runs[label] = {
+                "argv": [a for a in argv if a != path],
+                "wape": r.wape, "mae": r.mae, "num_forecasts": r.num_forecasts,
+                "forecasts_per_s": r.forecasts_per_sec,
+                "forecasts_per_s_windows": r.forecasts_per_sec_windows,
+                "forward_only_forecasts_per_s": forward_rates[model],
+                "split_s": r.split_seconds,
+                "split_forecasts_per_s": r.num_forecasts / r.split_seconds,
+                "gflops_per_sample": r.gflops_per_sample, "peak_device_bytes": r.peak_hbm_bytes,
+                "one_pass": r.one_pass, "forwards": r.forwards,
+                "launches": counts, "launches_per_forward": {
+                    k: v / r.forwards for k, v in counts.items() if v},
+                "cli_s": wall, "cli_tail": out.getvalue().strip().splitlines()[-3:]}
+            if "--dedup_images" in argv and "--bf16_backbone" in argv:
+                # 128 photos a forward in bf16, as phase 6 runs: the share of
+                # the scoring pass the device spent idle, from its busy time
+                # a forward.
+                batches = -(-CLI_ROWS // B)
+                runs[label]["device_idle_share_est"] = max(
+                    0.0, 1.0 - batches * forward_busy_ms[model] / 1e3 / r.split_seconds)
+            return r
+
+        def host_check(label, r, cli, argv, make):
+            args = cli.build_parser().parse_args(argv)
+            loaders, vocab, norm = common.build_loaders(
+                args, demand=True, output_len=12, splits=("test",),
+                dedup_eval_images=bool(args.dedup_images), pin_memory=True)
+            model = make(args, vocab, device=dev, generator=seed_everything(args.seed))
+            host = _host_metrics(model, loaders["test"], dev, norm)
+            runs[label]["host_float64"] = host
+            # The device's busy time a forward of these batches (profiler),
+            # against the forward time score_split measured.
+            batches = [to_device(b, dev) for _, b in zip(range(2), loaders["test"])]
+            with torch.inference_mode():
+                model(batches[0])
+                torch.cuda.synchronize()
+                with _profile() as prof:
+                    for b in batches:
+                        model(b)
+                    torch.cuda.synchronize()
+            busy_ms = _device_us(prof) / 1e3 / len(batches)
+            runs[label]["forward_device_busy_ms"] = busy_ms
+            runs[label]["forward_idle_share"] = max(
+                0.0, 1.0 - busy_ms * r.forecasts_per_sec / (1e3 * B))
+            for k in ("wape", "mae"):
+                checks[f"{label}: {k} vs host"] = abs(getattr(r, k) - host[k]) <= \
+                    METRIC_RTOL * abs(host[k])
+            checks[f"{label}: host rows"] = host["rows"] == CLI_ROWS
+
+        residual = {"fused_gated_residual": 2}
+        v4 = run("gated_v4", forecast_transformer, v4_argv, "gated_v4", residual)
+        host_check("gated_v4", v4, forecast_transformer, v4_argv, forecast_transformer.make_model)
+        v4_full = run("gated_v4 --dedup_images 0", forecast_transformer,
+                      v4_argv + ["--dedup_images", "0"], "gated_v4", residual)
+        v4_batch = run("gated_v4 --one_pass 0", forecast_transformer,
+                       v4_argv + ["--one_pass", "0"], "gated_v4", residual)
+        f32 = run("gated_v4 f32", forecast_transformer, v4_f32, "gated_v4", residual)
+        f32_full = run("gated_v4 f32 --dedup_images 0", forecast_transformer,
+                       v4_f32 + ["--dedup_images", "0"], "gated_v4", residual)
+        checks["gated_v4: auto took one-pass"] = v4.one_pass and not v4_batch.one_pass
+        for label, a, b in (("one_pass 1 vs 0", v4, v4_batch),
+                            ("f32 dedup 1 vs 0", f32, f32_full)):
+            checks[f"{label}: wape"] = abs(a.wape - b.wape) < SAME_WAPE_ATOL
+            checks[f"{label}: mae"] = abs(a.mae - b.mae) < SAME_MAE_ATOL
+        for k in ("wape", "mae"):
+            checks[f"bf16 dedup 1 vs 0: {k}"] = abs(getattr(v4, k) - getattr(v4_full, k)) <= \
+                BF16_SAME_RTOL * abs(getattr(v4_full, k))
+        # Why bf16 dedup is held to one bf16 ulp: the pooled features of the
+        # same photos alone (as dedup encodes them) and among 128 (as the
+        # full batch does).
+        vocab = VocabSizes.from_dicts(*load_label_dicts(path))
+        photos = torch.from_numpy(pixels[:B // CLI_ROWS_PER_IMAGE]).to(dev)
+        for label, argv in (("bf16", v4_argv), ("f32", v4_f32)):
+            args = forecast_transformer.build_parser().parse_args(argv)
+            encoder = forecast_transformer.make_model(
+                args, vocab, device=dev, generator=seed_everything(args.seed)).image_encoder
+            with torch.inference_mode():
+                alone = encoder(photos)
+                among = encoder(photos.repeat(CLI_ROWS_PER_IMAGE, 1, 1, 1))[:len(photos)]
+            rounding[label] = {"max_abs_diff": (alone - among).abs().max().item(),
+                               "absmax": alone.abs().max().item()}
+        demand = run("cross_attn_rnn_demand", forecast_dl, dl_argv, "cross_attn_rnn_demand",
+                     {"fused_additive_attention": 36})
+        host_check("cross_attn_rnn_demand", demand, forecast_dl, dl_argv,
+                   lambda args, vocab, **kw: forecast_dl.make_model(args, vocab, 12, **kw))
+    _emit({"phase": "forecast_cli", **card, "rows": CLI_ROWS,
+           "rows_per_image": CLI_ROWS_PER_IMAGE, "image": IMAGE, "batch": B,
+           "dataset_setup_s": setup_s,
+           "timing": "forecasts_per_s: score_split's forward rate, CUDA events over "
+                     "10 distinct (rolled) device batches after a warm-up, the median of "
+                     "3 windows; split_forecasts_per_s: rows over the host-clock seconds "
+                     "of the scoring pass (batch assembly, copies, forwards, one sync); "
+                     "forward_only_forecasts_per_s: phase 6 / 16 (128 photos a forward)",
+           "peak_device_bytes": "torch.cuda.max_memory_allocated over one batch's forward",
+           "metric_rtol": METRIC_RTOL, "same_wape_atol": SAME_WAPE_ATOL,
+           "same_mae_atol": SAME_MAE_ATOL, "bf16_same_rtol": BF16_SAME_RTOL,
+           "pooled_features_32_alone_vs_among_128": rounding, "runs": runs,
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"forecast_cli: {name}: {json.dumps(runs)}")
+    return {name: sum(c[name] for c in launches.values()) for name in counted}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs on the GPU only")
@@ -532,9 +734,14 @@ def main():
     from visuelle2_tpu_torch.perf import convfloor, convfloor_v2
     from visuelle2_tpu_torch.perf import roofline as harness_roofline
 
+    counted = {"fused_gated_residual": kernel, "fused_gated_mha": mha,
+               "fused_additive_attention": additive, "fused_gru_sequence": gru_kernel,
+               "probe_matmul_bf16": matmul_bf16, "probe_matmul_int8": matmul_int8,
+               "read_reduce": read_reduce}
+
     def zero_counts():
-        kernel.launches = mha.launches = additive.launches = gru_kernel.launches = 0
-        matmul_bf16.launches = matmul_int8.launches = read_reduce.launches = 0
+        for wrapper in counted.values():
+            wrapper.launches = 0
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1034,9 +1241,17 @@ def main():
            "f32_card_vs_cpu_max_abs_err": window_errs, "f32_tol": F32_ATOL})
 
     # 16.–18. Demand times, additive attention times, GRU times ---------------------
-    _emit({"phase": "times_demand", **card, "model": "cross_attn_rnn_demand",
-           **_forward_times(model, fn, host_batches, dev, seed=400, kernel_groups={
-               "fused_additive_attention": ADDITIVE_KERNEL_NAMES})})
+    demand_times = _forward_times(model, fn, host_batches, dev, seed=400, kernel_groups={
+        "fused_additive_attention": ADDITIVE_KERNEL_NAMES})
+    _emit({"phase": "times_demand", **card, "model": "cross_attn_rnn_demand", **demand_times})
+
+    # 16b. the forecast CLIs on a full-width split --------------------------------
+    cli_launches = _forecast_cli_phase(
+        dev, card, zero_counts, counted,
+        forward_rates={"gated_v4": v4_times["forecasts_per_s"],
+                       "cross_attn_rnn_demand": demand_times["forecasts_per_s"]},
+        forward_busy_ms={"gated_v4": v4_times["forward_device_busy_ms"],
+                         "cross_attn_rnn_demand": demand_times["forward_device_busy_ms"]})
     per_call = {}
     with torch.inference_mode():
         for mod, args in zip(add_mods, add_calls):
@@ -1196,7 +1411,7 @@ def main():
                                      ("kernel", "plain", "library", "bound")}
                                 for nm, v in probe_us.items()}}
 
-    _emit({"kernels": [{
+    kernel_rows = [{
         "name": "fused_gated_residual", "route": "cuda",
         "source": "visuelle2_tpu_torch/csrc/gated_fusion.cu",
         "replaces": "visuelle2_tpu/ops/pallas/gated_fusion.py:59",
@@ -1251,7 +1466,12 @@ def main():
         probe_row("probe_matmul_int8", "int8", "visuelle2_tpu_torch/csrc/probe_gemm.cu", 209,
                   probe["max_abs_err"]["int8"], {"tol": 0}),
         probe_row("read_reduce", "read", "visuelle2_tpu_torch/csrc/read_reduce.cu", 249,
-                  probe["max_abs_err"]["read"], {"atol": READ_ATOL, "rtol": READ_RTOL})]})
+                  probe["max_abs_err"]["read"], {"atol": READ_ATOL, "rtol": READ_RTOL})]
+    for row in kernel_rows:
+        # Each path's own count, zeroed just before it: "launches" is the
+        # path the row has always named; the forecast CLIs' scoring runs too.
+        row["launches_forecast_cli"] = cli_launches[row["name"]]
+    _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

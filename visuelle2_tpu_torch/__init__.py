@@ -14,10 +14,12 @@ beside it runs only for CPU tensors.
 Ported so far: the eval forwards of the seq2seq family (``gtm``, ``m4ft``,
 ``gated_v1`` … ``gated_v4``) and of the CrossAttnRNN family
 (``cross_attn_rnn_21``, ``cross_attn_rnn_210``, ``cross_attn_rnn_demand``),
-and the HTTP server that serves them (``models.build``,
-``eval.export.make_forecaster``, ``eval.server.make_server``).  Entry points
-put the model on ``cuda`` unless the caller passes ``device="cpu"``
-(``_device.resolve_device``).
+the HTTP server that serves them (``models.build``,
+``eval.export.make_forecaster``, ``eval.server.make_server``), and scoring a
+dataset's test split (``data``, ``eval.forecast.score_split`` and the CLIs
+``cli.forecast_transformer`` and ``cli.forecast_dl``).  Entry points put the
+model on ``cuda`` unless the caller passes ``device="cpu"``
+(``_device.resolve_device``, ``--device`` on the CLIs).
 
 Numeric traps the tests guard (each is restated where it lives):
 

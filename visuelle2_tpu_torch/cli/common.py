@@ -1,0 +1,217 @@
+"""Shared CLI plumbing, counterpart of the eval side of
+``visuelle2_tpu/cli/common.py``: the common flags, dataset and loader
+construction, the ``--quantize`` gate and the JSONL metrics log.
+
+The flags are the JAX CLIs' own, plus ``--device`` (default ``cuda``; the
+tests pass ``cpu``): the CLI form of the port's ``device=`` rule.
+``--gpu_num N`` selects ``cuda:N``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from visuelle2_tpu_torch._device import resolve_device
+from visuelle2_tpu_torch.data.images import ImageStore
+from visuelle2_tpu_torch.data.loader import BatchLoader
+from visuelle2_tpu_torch.data.pipeline import (
+    load_label_dicts,
+    load_norm_scalar,
+    load_visuelle2,
+)
+from visuelle2_tpu_torch.eval.forecast import dump_attention, score_split
+from visuelle2_tpu_torch.models.base import VocabSizes
+
+# Flags the forecast CLIs accept but whose work is ported later: a
+# non-default value raises, naming where it lands.
+LATER_FLAGS = {
+    "ckpt_path": "ROADMAP Queue 1 item 8 (training: checkpoints and hparams.json)",
+    "export": "ROADMAP Queue 1 item 13 (serving: the artifact file)",
+}
+
+
+def add_common_args(p: argparse.ArgumentParser):
+    p.add_argument("--dataset_path", type=str, default="../visuelle2/")
+    p.add_argument("--seed", type=int, default=21)
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--quick_debug", action="store_true")
+    p.add_argument("--image_arch", type=str, default="resnet101",
+                   choices=["resnet50", "resnet101", "tiny"])
+    p.add_argument("--image_size", type=int, default=299)
+    p.add_argument("--bf16_backbone", action="store_true",
+                   help="run the image backbone in bfloat16")
+    p.add_argument("--pretrained_backbone", type=str, default="",
+                   help=".npz of a converted pretrained backbone, spliced in at "
+                        "training time (not read when forecasting)")
+    p.add_argument("--gpu_num", type=int, default=0,
+                   help="the CUDA device index: --device cuda runs on cuda:N")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the default) or cpu")
+    p.add_argument("--trace_dir", type=str, default="",
+                   help="training-time device trace directory (not read when "
+                        "forecasting)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize backbone blocks on backward (training)")
+    p.add_argument("--accum_steps", type=int, default=1,
+                   help="average gradients over N batches per update (training)")
+    # wandb-compatible flags (kept for CLI parity; logging is JSONL locally)
+    p.add_argument("--use_wandb", action="store_true")
+    p.add_argument("--wandb_entity", type=str, default="")
+    p.add_argument("--wandb_project", type=str, default="")
+    p.add_argument("--wandb_run", type=str, default="")
+    return p
+
+
+def add_forecast_args(p, *, dump_help: str):
+    """The flags both forecast CLIs add to their model flags."""
+    p.add_argument("--ckpt_path", type=str, default="",
+                   help="checkpoint to score (ported with training)")
+    p.add_argument("--export", type=str, default="",
+                   help="write a serving artifact (ported with serving)")
+    # w8a8 calibration (read once --quantize w8a8 is ported)
+    p.add_argument("--calib_batches", type=int, default=2,
+                   help="batches used to calibrate w8a8 activation scales")
+    p.add_argument("--calib_split", type=str, default="test", choices=["test", "train"],
+                   help="split the calibration batches come from")
+    p.add_argument("--quantize", type=str, default="",
+                   choices=["", "none", "int8", "w8a8", "auto"],
+                   help="'' or none: the float path; int8, w8a8 and auto are "
+                        "ported with serving and w8a8")
+    p.add_argument("--dump_attention", type=str, default="", help=dump_help)
+    p.add_argument("--metrics_out", type=str, default="",
+                   help="also write WAPE/MAE/throughput/GFLOPs as JSON")
+    p.add_argument("--one_pass", choices=["auto", "0", "1"], default="auto",
+                   help="1: copy the whole split to the device, then score it; "
+                        "0: one batch at a time; auto: one-pass when the split "
+                        "fits a quarter of the device's memory")
+    return p
+
+
+def resolve_cli_device(args) -> torch.device:
+    """``--device``: ``cuda`` is ``cuda:<--gpu_num>`` and raises without a
+    CUDA device; anything else is taken as given."""
+    if args.device != "cuda":
+        return resolve_device(args.device)
+    resolve_device()
+    return torch.device(f"cuda:{args.gpu_num}")
+
+
+def check_later_flags(args) -> None:
+    """Raise for a forecast flag whose work is not ported yet."""
+    for flag, where in LATER_FLAGS.items():
+        if getattr(args, flag, ""):
+            raise NotImplementedError(f"--{flag} is ported in {where}")
+    resolve_quantize(args)
+
+
+def resolve_quantize(args) -> str:
+    """The ``--quantize`` mode: ``""`` (also for ``none``); every other mode
+    raises until its port lands."""
+    mode = getattr(args, "quantize", "") or ""
+    if mode in ("", "none"):
+        return ""
+    raise NotImplementedError(
+        f"--quantize {mode} is ported in ROADMAP Queue 1 items 13 (int8 artifact "
+        "storage) and 14 (the w8a8 backbone)")
+
+
+def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test"),
+                  dedup_eval_images: bool = False, dedup_train_images: bool = False,
+                  pin_memory: bool = False) -> Tuple[dict, VocabSizes, float]:
+    """Returns ``({split: BatchLoader}, vocab, norm_scalar)``.
+
+    ``dedup_eval_images`` makes non-train loaders ship unique-image batches
+    (identical outputs, backbone FLOPs divided by the photo duplication
+    factor); ``dedup_train_images`` asks the train loader for the grouped
+    sampler, which raises until ROADMAP Queue 1 item 11.  ``pin_memory``
+    pins every batch (a CUDA target).  The gtm_v1 text featurizer arrives
+    with that model (item 10).
+    """
+    cat_dict, col_dict, fab_dict = load_label_dicts(args.dataset_path)
+    vocab = VocabSizes.from_dicts(cat_dict, col_dict, fab_dict)
+    norm_scalar = load_norm_scalar(args.dataset_path)
+
+    loaders = {}
+    for split in splits:
+        arrays = load_visuelle2(args.dataset_path, split, demand=demand, output_len=output_len)
+        if args.quick_debug:
+            arrays = arrays.subset(1000)
+        store = ImageStore.build(
+            os.path.join(args.dataset_path, "images"), arrays.image_paths,
+            cache_file=ImageStore.cache_path(args.dataset_path, split, args.image_size),
+            size=args.image_size)
+        dedup = dedup_train_images if split == "train" else dedup_eval_images
+        loaders[split] = BatchLoader(
+            arrays, store, args.batch_size, shuffle=(split == "train"), seed=args.seed,
+            drop_remainder=(split == "train"), dedup_images=dedup, pin_memory=pin_memory)
+    return loaders, vocab, norm_scalar
+
+
+def score_test_split(args, model, loader, norm_scalar: float):
+    """What both forecast CLIs do once the model and loader exist:
+    ``--dump_attention``, ``score_split`` (``--one_pass``), ``--metrics_out``
+    (the JAX CLIs' JSON keys) and the printed summary."""
+    if args.dump_attention:
+        keys = dump_attention(model, next(iter(loader)), args.dump_attention)
+        print(f"Attention weights -> {args.dump_attention}: "
+              f"{keys if keys else 'model returns no attention aux'}")
+    result = score_split(model, loader, norm_scalar=norm_scalar,
+                         one_pass=None if args.one_pass == "auto" else bool(int(args.one_pass)))
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump({"wape": result.wape, "mae": result.mae,
+                       "num_forecasts": result.num_forecasts,
+                       "forecasts_per_sec_per_chip": result.forecasts_per_sec_per_chip,
+                       "gflops_per_sample": result.gflops_per_sample,
+                       "peak_hbm_bytes": result.peak_hbm_bytes}, f)
+    print(result.summary())
+    print(f"WAPE: {result.wape}")
+    print(f"MAE: {result.mae}")
+    return result
+
+
+class JsonlLogger:
+    """Local metrics log; mirrors to wandb when ``--use_wandb`` asks and the
+    package is importable."""
+
+    def __init__(self, path: Optional[str], wandb_args=None):
+        self.path = path
+        if path:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            self._f = open(path, "a")
+        else:
+            self._f = None
+        self._wandb = None
+        if wandb_args is not None and getattr(wandb_args, "use_wandb", False):
+            try:
+                import wandb
+
+                self._wandb = wandb.init(
+                    project=wandb_args.wandb_project or None,
+                    entity=wandb_args.wandb_entity or None,
+                    name=wandb_args.wandb_run or None)
+            except Exception as e:
+                print(f"[logger] wandb unavailable ({type(e).__name__}); "
+                      "metrics go to stdout/JSONL only")
+
+    def __call__(self, metrics: dict):
+        line = {k: (float(v) if isinstance(v, (int, float, np.floating)) else v)
+                for k, v in metrics.items()}
+        print("  ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
+                        for k, v in line.items()))
+        if self._f:
+            self._f.write(json.dumps(line) + "\n")
+            self._f.flush()
+        if self._wandb is not None:
+            self._wandb.log(line)
+
+    def close(self):
+        if self._f:
+            self._f.close()
+            self._f = None

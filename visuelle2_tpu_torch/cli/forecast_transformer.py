@@ -1,0 +1,117 @@
+"""Score a GTM-family model (GTM / M4FT / Gated v1–v4) on a dataset's test
+split, counterpart of ``visuelle2_tpu/cli/forecast_transformer.py``.
+
+    python3 -m visuelle2_tpu_torch.cli.forecast_transformer --dataset_path D \\
+        --model gated_v4 --demand 1 --output_len 12 --bf16_backbone
+
+prints WAPE / MAE / forecasts/s / GFLOPs per sample / peak device memory.
+The flags are the JAX CLI's (its train parser's and its own, with the
+``--num_layers`` alias) plus ``--device`` (``cuda`` unless given).  Without
+``--ckpt_path`` it scores a model drawn from ``--seed``, as the JAX CLI does
+without one; ``--ckpt_path``, ``--export`` and a ``--quantize`` mode raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from visuelle2_tpu_torch.cli.common import (
+    add_common_args,
+    add_forecast_args,
+    build_loaders,
+    check_later_flags,
+    resolve_cli_device,
+    score_test_split,
+)
+from visuelle2_tpu_torch.models import build
+from visuelle2_tpu_torch.utils.seeding import seed_everything
+
+TRANSFORMER_MODELS = ["gtm", "m4ft", "gated_v1", "gated_v2", "gated_v3", "gated_v4",
+                      "gtm_v1"]
+
+
+def make_model(args, vocab, *, device=None, generator=None):
+    kw = dict(
+        embedding_dim=args.embedding_dim,
+        hidden_dim=args.hidden_dim,
+        output_len=args.output_len,
+        num_heads=args.num_attn_heads,
+        num_layers=args.num_hidden_layers,
+        use_encoder_mask=bool(args.use_encoder_mask),
+        autoregressive=bool(args.autoregressive),
+        use_text=bool(args.use_text),
+        use_img=bool(args.use_img),
+        image_arch=args.image_arch,
+        image_dtype=torch.bfloat16 if args.bf16_backbone else torch.float32,
+    )
+    if args.model == "gtm_v1":
+        return build("gtm_v1", device=device, generator=generator, **kw)
+    return build(args.model, device=device, generator=generator, vocab=vocab,
+                 query_modality=args.query_modality, **kw)
+
+
+def run(args):
+    print(args)
+    check_later_flags(args)
+    demand = bool(args.demand)
+    if args.model == "gtm_v1" and not demand:
+        raise SystemExit("gtm_v1 is demand-only; use --demand 1")
+    device = resolve_cli_device(args)
+    loaders, vocab, norm_scalar = build_loaders(
+        args, demand=demand, output_len=args.output_len, splits=("test",),
+        dedup_eval_images=bool(args.dedup_images), pin_memory=device.type == "cuda")
+    model = make_model(args, vocab, device=device, generator=seed_everything(args.seed))
+    return score_test_split(args, model, loaders["test"], norm_scalar)
+
+
+def add_model_args(p, default_model="gtm"):
+    """The JAX train parser's flags (``visuelle2_tpu/cli/train_transformer.py``);
+    the training ones are accepted and not read when forecasting."""
+    p.add_argument("--model", type=str, default=default_model, choices=TRANSFORMER_MODELS)
+    p.add_argument("--ckpt_dir", type=str, default="ckpt_gtm/")
+    p.add_argument("--demand", type=int, default=1)
+    p.add_argument("--output_len", type=int, default=12)
+    p.add_argument("--embedding_dim", type=int, default=32)
+    p.add_argument("--hidden_dim", type=int, default=64)
+    p.add_argument("--num_attn_heads", type=int, default=4)
+    p.add_argument("--num_hidden_layers", type=int, default=1)
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--use_img", type=int, default=1)
+    p.add_argument("--use_text", type=int, default=1)
+    p.add_argument("--use_encoder_mask", type=int, default=1)
+    p.add_argument("--autoregressive", type=int, default=0)
+    p.add_argument("--query_modality", type=str, default="text",
+                   choices=["text", "image", "temporal"])
+    p.add_argument("--dedup_images", type=int, default=0,
+                   help="encode each unique product photo once per batch")
+    p.add_argument("--resume_from", type=str, default="")
+    p.add_argument("--autosave_minutes", type=float, default=0.0)
+    p.add_argument("--early_stop_patience", type=int, default=0)
+    p.add_argument("--early_stop_min_delta", type=float, default=0.0)
+    p.add_argument("--learning_rate", type=float, default=0.0)
+    return p
+
+
+def build_parser(default_model="gtm"):
+    p = argparse.ArgumentParser(description="Score a GTM-family model on Visuelle 2.0")
+    add_common_args(p)
+    add_model_args(p, default_model)
+    # The reference forecasters say --num_layers where its trainers say
+    # --num_hidden_layers; both are accepted.
+    p.add_argument("--num_layers", dest="num_hidden_layers", type=int,
+                   default=argparse.SUPPRESS, help="alias of --num_hidden_layers")
+    add_forecast_args(p, dump_help="save the first test batch's attention weights (.npz)")
+    # Eval dedup gives the same outputs, so it is on by default here.
+    p.set_defaults(dedup_images=1)
+    return p
+
+
+def main(argv=None):
+    return run(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

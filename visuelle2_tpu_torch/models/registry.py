@@ -89,6 +89,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                     mod.bias.fill_(mod.bias_init)
 
 
+def model_names():
+    """Every name ``build`` knows, the ones still to port included."""
+    return sorted([*_LATER, *_CROSS_ATTN, *VARIANTS])
+
+
 def build(name: str, *, device=None, generator: Optional[torch.Generator] = None,
           **overrides) -> nn.Module:
     """Build a registry model in eval mode on ``device``.
@@ -103,8 +108,7 @@ def build(name: str, *, device=None, generator: Optional[torch.Generator] = None
     elif name in VARIANTS:
         make = lambda: Seq2SeqForecaster(variant=name, **{**_GTM_DEFAULTS, **overrides})
     else:
-        raise KeyError(f"unknown model {name!r}; known: "
-                       f"{sorted([*_LATER, *_CROSS_ATTN, *VARIANTS])}")
+        raise KeyError(f"unknown model {name!r}; known: {model_names()}")
     dev = resolve_device(device)
     model = make()
     init_parameters(model, generator or torch.Generator().manual_seed(0))
