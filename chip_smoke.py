@@ -98,6 +98,37 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    16's forward-only rate, the scored forward's device busy time,
    the scoring pass's own rate on the host clock, GFLOPs per sample and
    peak device memory;
+16c. train_kernel — ``fused_gated_residual`` (B=128, D=32, C=128 and a
+   ragged shape, both gate forms) and ``fused_gated_mha`` (gated_v2's
+   shapes, dropout 0) under their autograd functions on the card (f32, TF32
+   off) against autograd of their plain versions: the output, and every
+   input's gradient within atol 1e-5; one kernel launch a forward and none
+   in the backward; the residual's forward and backward device µs beside
+   plain autograd's;
+16d. train_parity — a small gated_v4 (tiny backbone at 64², E=H=16, B=8)
+   trained 3 steps on the card and on the CPU from the same weights and
+   batches, f32, dropout off: losses within 1e-5 relative, the first step's
+   gradients within 1e-4 (atol + rtol), each parameter's movement with
+   cosine ≥ 0.9999 and norms within 1e-3 (elements whose CPU gradient at
+   some step is float noise, below 1e-8 of its global norm, only within the
+   noise steps' size), BatchNorm running statistics within 1e-5, frozen
+   stages unmoved, 2 launches a step;
+16e. train — the full-width gated_v4 (bf16 backbone, B=128): the train step
+   through ``Trainer`` (CUDA events over 8 distinct batches, the median of
+   three windows, each printed; samples/s; the optimizer step's device and
+   host ms; device busy and idle share, top operators and kernels from the
+   profiler; peak memory; the same with ``--remat``), then
+   ``train_transformer.main`` on a synthetic split under ``build/`` (1,024
+   train rows, 8 steps an epoch, the forecast_cli phase's 1,000 test rows,
+   2 epochs, ``--learning_rate 1e-3``, ``--trace_dir``): finite losses,
+   exactly 2 ``fused_gated_residual`` launches a train step and an eval
+   forward, no host sync inside a step, the checkpoint slots,
+   ``hparams.json`` and one trace; the same command cut by a SIGTERM
+   after 3 steps of epoch 0 (exit 143), then rerun with ``--resume_from
+   auto``, trains only the remaining steps and ends at the same step count
+   and epochs; ``forecast_transformer.main --ckpt_path`` on the best epoch
+   prints a WAPE within 1e-4 relative of that epoch's logged
+   ``val_wWAPE``;
 17. additive_kernel_times — per Demand call (L = 100, 52, 4), the kernel's
    and the plain version's device time per call, the kernel's per launch,
    launches per call and per forward, and the bounds (float32-accurate:
@@ -125,7 +156,8 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    the artifact check, and the epilogue and chain ratios.
 
 Then the ``kernels`` line (seven kernels; ``launches`` counts each row's
-own path, ``launches_forecast_cli`` the forecast CLIs' runs), the
+own path, ``launches_forecast_cli`` the forecast CLIs' runs, row 1's
+``launches_train`` a train step's and an eval forward's), the
 ``nvidia-smi`` line and,
 last, the ``ok`` line.  Without a CUDA device it exits non-zero before
 printing any result.
@@ -144,6 +176,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -197,6 +230,25 @@ SAME_WAPE_ATOL, SAME_MAE_ATOL = 1e-3, 1e-4
 # where float32 differs by 6e-6), so the metrics are held to one bf16 ulp,
 # relative.
 BF16_SAME_RTOL = 2.0 ** -8
+# Training.  The kernels under autograd against autograd of their plain
+# versions: the gradients are f32 sums in another order (train_kernel).  The
+# small gated_v4 trained on the card and on the CPU (train_parity): losses,
+# first-step gradients, parameter movement over the steps (cosine and norm,
+# per parameter: Adafactor's first update is close to sign(g), so only the
+# direction of a whole parameter is meaningful), BatchNorm statistics.
+TRAIN_KERNEL_ATOL = 1e-5
+TRAIN_PARITY_STEPS = 3
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_STATS_TOL = 1e-5, 1e-4, 1e-5
+TRAIN_COS_FLOOR, TRAIN_NORM_RTOL = 0.9999, 1e-3
+TRAIN_LR = 1e-3
+TRAIN_NOISE_SHARE = 1e-8  # of a step's global gradient norm: float noise
+# Full width (train): 1,024 train rows (8 steps an epoch), 2 epochs; the
+# SIGTERM lands after this many steps of epoch 0; forecast --ckpt_path scores
+# the best epoch within this of its logged val_wWAPE.
+TRAIN_ROWS, TRAIN_EPOCHS, TRAIN_PREEMPT_AFTER = 1024, 2, 3
+TRAIN_WINDOWS = 3
+TRAIN_ARCH = "resnet101"
+TRAIN_WAPE_RTOL = 1e-4
 
 
 def _require(cond, msg):
@@ -694,6 +746,424 @@ def _forecast_cli_phase(dev, card, zero_counts, counted, forward_rates, forward_
     for name, ok in checks.items():
         _require(ok, f"forecast_cli: {name}: {json.dumps(runs)}")
     return {name: sum(c[name] for c in launches.values()) for name in counted}
+
+
+def _train_kernel_phase(dev, card, kernel, plain, mha, mha_plain, gcd_block_mask):
+    """Phase train_kernel: ``fused_gated_residual`` and ``fused_gated_mha``
+    under autograd on the card (see the module docstring)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).requires_grad_()
+
+    errs, launches, checks = {}, {}, {}
+
+    def compare(key, wrapper, fn, plain_fn, inputs, out_tol):
+        before = wrapper.launches
+        out = fn()
+        forward = wrapper.launches - before
+        cot = torch.randn(out.shape, device=dev, generator=gen)
+        grads = torch.autograd.grad(out, inputs, cot)
+        torch.cuda.synchronize()
+        backward = wrapper.launches - before - forward
+        out_p = plain_fn()
+        grads_p = torch.autograd.grad(out_p, inputs, cot)
+        e = {"out": (out - out_p).abs().max().item()}
+        e.update({f"d{i}": (g - w).abs().max().item()
+                  for i, (g, w) in enumerate(zip(grads, grads_p))})
+        errs[key], launches[key] = e, {"forward": forward, "backward": backward}
+        checks[f"{key}: out"] = out_tol(out, out_p)
+        checks[f"{key}: grads"] = max(v for k, v in e.items() if k != "out") <= TRAIN_KERNEL_ATOL
+        checks[f"{key}: one launch a forward, none in the backward"] = (forward, backward) == (1, 0)
+        checks[f"{key}: autograd function"] = out.grad_fn is not None and \
+            type(out.grad_fn).__name__.startswith("_Gated")
+        return max(e.values())
+
+    worst = {"fused_gated_residual": 0.0, "fused_gated_mha": 0.0}
+    for Bk, D, C in ((B, 32, 128), (37, 48, 96)):
+        for residual in (True, False):
+            ins = [randn(Bk, D), randn(Bk, C), randn(D, D, scale=0.1), randn(C, D, scale=0.1),
+                   randn(D)]
+            worst["fused_gated_residual"] = max(worst["fused_gated_residual"], compare(f"gated_residual {Bk}x{D}x{C}/residual={residual}", kernel,
+                    lambda: kernel(*ins, residual=residual),
+                    lambda: plain(*ins, residual=residual), ins,
+                    lambda a, b: (a - b).abs().max().item() <= KERNEL_ATOL))
+    for variant, (Bk, Lq, Lk, D, heads), masked in (
+            ("head", (B, 52, 52, 64, 4), True), ("pure", (B, 1, 52, 64, 4), False),
+            ("head", (37, 52, 52, 48, 4), True)):
+        G = D // heads if variant == "head" else D
+        query = randn(Bk, Lq, D)
+        # The trend encoder attends to itself; the decoder to the memory.
+        key = query if variant == "head" else randn(Bk, Lk, D)
+        mask = (gcd_block_mask(Lk, 12, device=dev) if masked
+                else torch.zeros(Lq, Lk, device=dev))
+        weights = [t for w in ((D, D),) * 3 + ((G, G), (D, D))
+                   for t in (randn(*w, scale=0.1), randn(w[1], scale=0.1))]
+        args = [query, key, key, mask, *weights]
+        inputs = [query] + ([] if key is query else [key]) + weights
+        worst["fused_gated_mha"] = max(worst["fused_gated_mha"], compare(
+            f"gated_mha {variant} {Bk}x{Lq}x{Lk}x{D}/{heads}", mha,
+            lambda: mha(*args, num_heads=heads, variant=variant),
+            lambda: mha_plain(*args, num_heads=heads, variant=variant), inputs,
+            lambda a, b: _mha_err(a, b)[1]))
+    # Forward and backward device µs at the main-path shape: the kernel
+    # under its autograd function against autograd of the plain version.
+    ins = [randn(B, 32), randn(B, 128), randn(32, 32, scale=0.1), randn(128, 32, scale=0.1),
+           randn(32)]
+    cot = torch.randn(B, 32, device=dev, generator=gen)
+    device_ms, call_ms = _call_times({
+        "kernel": lambda: torch.autograd.grad(kernel(*ins), ins, cot),
+        "plain": lambda: torch.autograd.grad(plain(*ins), ins, cot),
+        "kernel_forward_only": lambda: kernel(*(t.detach() for t in ins))}, n_calls=200)
+    times = {f"{k}_device_us": 1e3 * v for k, v in device_ms.items()}
+    times.update({f"{k}_call_us": 1e3 * v for k, v in call_ms.items()})
+    _emit({"phase": "train_kernel", **card, "max_abs_err": errs, "launches": launches,
+           "gated_residual_forward_backward_main_path": times,
+           "grad_atol": TRAIN_KERNEL_ATOL, "residual_out_atol": KERNEL_ATOL,
+           "mha_out_atol": MHA_ATOL, "mha_out_rtol": MHA_RTOL,
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"train_kernel: {name}: {json.dumps(errs)}")
+    return worst
+
+
+def _noise_elements(grads):
+    """Per parameter, the elements whose gradient at some step is float
+    noise (a key bias under softmax, whose true gradient is zero):
+    Adafactor's sign-like steps move them in directions set by rounding."""
+    mask = {}
+    for g in grads:
+        total = torch.sqrt(sum(v.double().square().sum() for v in g.values()))
+        for n, v in g.items():
+            quiet = v.abs().ravel() <= TRAIN_NOISE_SHARE * total
+            mask[n] = mask[n] | quiet if n in mask else quiet
+    return mask
+
+
+def _train_parity_phase(dev, card, kernel):
+    """Phase train_parity: a small gated_v4 trained on the card against the
+    same model on the CPU (see the module docstring)."""
+    from visuelle2_tpu_torch.models import VocabSizes, build
+    from visuelle2_tpu_torch.ops import dropout
+    from visuelle2_tpu_torch.train.loop import TrainConfig, Trainer
+    from visuelle2_tpu_torch.train.optim import is_frozen
+
+    small = dict(image_arch="tiny", vocab=VocabSizes(5, 6, 5, 126), embedding_dim=16,
+                 hidden_dim=16, output_len=12)
+    on_card = build("gated_v4", device=dev, generator=torch.Generator().manual_seed(5), **small)
+    on_cpu = build("gated_v4", device="cpu", **small)
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    init = {n: p.detach().cpu().clone() for n, p in on_cpu.named_parameters()}
+    batches = [_synthetic_batch(8, 64, seed=60 + i) for i in range(TRAIN_PARITY_STEPS)]
+    runs = {}
+    for label, model in (("card", on_card), ("cpu", on_cpu)):
+        trainer = Trainer(model, TrainConfig(grad_clip=0.5, learning_rate=TRAIN_LR))
+        state = trainer.init_state()
+        before, losses, grads = kernel.launches, [], []
+        with dropout.disabled():
+            for b in batches:
+                state, m = trainer.train_step(state,
+                                              {k: torch.from_numpy(v) for k, v in b.items()})
+                losses.append(float(m["loss"]))
+                grads.append({n: p.grad.detach().cpu().clone()
+                              for n, p in model.named_parameters() if p.grad is not None})
+        runs[label] = {"losses": losses, "first_grads": grads[0], "grads": grads,
+                       "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+                       "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()},
+                       "launches": kernel.launches - before}
+    card_run, cpu_run = runs["card"], runs["cpu"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(card_run["losses"], cpu_run["losses"])]
+    grad_share = max(((card_run["first_grads"][n] - g).abs()
+                      / (TRAIN_GRAD_TOL + TRAIN_GRAD_TOL * g.abs())).max().item()
+                     for n, g in cpu_run["first_grads"].items())
+    grad_err = max((card_run["first_grads"][n] - g).abs().max().item()
+                   for n, g in cpu_run["first_grads"].items())
+    stats_share = max(((card_run["buffers"][n] - b).abs()
+                       / (TRAIN_STATS_TOL + TRAIN_STATS_TOL * b.abs())).max().item()
+                      for n, b in cpu_run["buffers"].items() if b.is_floating_point())
+    worst_cos, worst_norm, frozen_moved, noise, noise_share = 1.0, 0.0, [], {}, 0.0
+    quiet_elements = _noise_elements(cpu_run["grads"])
+    for n, p0 in init.items():
+        dc, dp = (card_run["params"][n] - p0).ravel(), (cpu_run["params"][n] - p0).ravel()
+        if is_frozen(n):
+            if dc.any() or dp.any():
+                frozen_moved.append(n)
+            continue
+        quiet = quiet_elements.get(n)
+        if quiet is not None and quiet.any():
+            # Noise steps only: lr · max(rms(p), 1e-3) each, an update of
+            # RMS at most 1 over the parameter.
+            bound = (len(batches) * TRAIN_LR * max(1e-3, p0.square().mean().sqrt().item())
+                     * dc.numel() ** 0.5)
+            norms = [dc[quiet].norm().item(), dp[quiet].norm().item()]
+            noise[n] = [int(quiet.sum()), quiet.numel(), *norms]
+            noise_share = max(noise_share, max(norms) / bound)
+            dc, dp = dc[~quiet], dp[~quiet]
+        nc, np_ = dc.norm().item(), dp.norm().item()
+        if nc == 0.0 and np_ == 0.0:
+            continue
+        if not (nc and np_):  # one side moved, the other did not
+            worst_cos, worst_norm = 0.0, float("inf")
+            continue
+        worst_cos = min(worst_cos, float(torch.dot(dc, dp) / (nc * np_)))
+        worst_norm = max(worst_norm, abs(nc - np_) / np_)
+    checks = {
+        "losses": max(loss_rel) <= TRAIN_LOSS_RTOL,
+        "first-step gradients": grad_share <= 1.0,
+        "movement cosine": worst_cos >= TRAIN_COS_FLOOR,
+        "movement norm": worst_norm <= TRAIN_NORM_RTOL,
+        "BatchNorm statistics": stats_share <= 1.0,
+        "frozen stages unmoved": not frozen_moved,
+        "noise elements": noise_share <= 1.01,
+        "launches": (card_run["launches"], cpu_run["launches"]) == (2 * len(batches), 0)}
+    _emit({"phase": "train_parity", **card, "model": "gated_v4", "steps": len(batches),
+           "batch": 8, "image": 64, "embedding_dim": 16, "hidden_dim": 16,
+           "learning_rate": TRAIN_LR, "losses": {k: v["losses"] for k, v in runs.items()},
+           "loss_rel_diff": loss_rel, "first_grad_max_abs_err": grad_err,
+           "first_grad_tolerance_share": grad_share, "movement_min_cos": worst_cos,
+           "movement_max_norm_rel_diff": worst_norm, "stats_tolerance_share": stats_share,
+           # parameter: [noise elements, elements, card norm, CPU norm]
+           "noise_elements": noise, "noise_bound_share": noise_share,
+           "launches": {k: v["launches"] for k, v in runs.items()},
+           "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad_atol_rtol": TRAIN_GRAD_TOL,
+                   "cos_floor": TRAIN_COS_FLOOR, "norm_rtol": TRAIN_NORM_RTOL,
+                   "noise_share": TRAIN_NOISE_SHARE,
+                   "stats_atol_rtol": TRAIN_STATS_TOL},
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"train_parity: {name}")
+
+
+def _train_step_times(trainer, state, batches, n_windows):
+    """ms per train step: CUDA events over the distinct ``batches``, the
+    median of ``n_windows`` windows after two warm-up steps; and the peak
+    device memory of one step."""
+    cycle = itertools.cycle(batches)
+    for _ in range(2):
+        trainer.train_step(state, next(cycle))
+    windows = [_cuda_ms(lambda: trainer.train_step(state, next(cycle)), len(batches))
+               for _ in range(n_windows)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(state, batches[0])
+    torch.cuda.synchronize()
+    return float(np.median(windows)), windows, torch.cuda.max_memory_allocated()
+
+
+def _train_phase(dev, card, zero_counts, counted):
+    """Phase train: full-width gated_v4 training on the card, timed through
+    ``Trainer`` and run end to end through ``train_transformer.main`` (see
+    the module docstring).  Returns the gated residual's launches a train
+    step and an eval forward."""
+    import signal
+
+    from visuelle2_tpu_torch.cli import forecast_transformer, train_transformer
+    from visuelle2_tpu_torch.data.images import ImageStore
+    from visuelle2_tpu_torch.data.pipeline import load_visuelle2
+    from visuelle2_tpu_torch.data.synthetic import make_synthetic_dataset
+    from visuelle2_tpu_torch.models import VocabSizes, build
+    from visuelle2_tpu_torch.train import loop
+    from visuelle2_tpu_torch.train.checkpoint import CheckpointManager
+
+    kernel = counted["fused_gated_residual"]
+    out = {}
+    # The step itself, through Trainer, on eight distinct device batches.
+    model = build("gated_v4", device=dev, generator=torch.Generator().manual_seed(9),
+                  vocab=VocabSizes(5, 6, 5, 126), image_dtype=torch.bfloat16,
+                  image_arch=TRAIN_ARCH)
+    trainer = loop.Trainer(model, loop.TrainConfig(grad_clip=0.5, learning_rate=TRAIN_LR))
+    state = trainer.init_state()
+    batches = [_to_device(_synthetic_batch(B, IMAGE, seed=500 + i), dev) for i in range(8)]
+    zero_counts()
+    step_ms, windows, peak = _train_step_times(trainer, state, batches, TRAIN_WINDOWS)
+    steps = 2 + TRAIN_WINDOWS * len(batches) + 1
+    launches_per_step = kernel.launches / steps
+    # The step must not wait on the device: no host sync in forward,
+    # backward or update (fit reads the losses once an epoch).
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.train_step(state, batches[1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sorted({str(w.message)[:200] for w in caught
+                    if "called a synchronizing CUDA operation" in str(w.message)})
+    zero_counts()
+    trainer.eval_step(state, batches[0])
+    launches_per_eval = kernel.launches
+    losses = [float(trainer.train_step(state, b)[1]["loss"]) for b in batches[:2]]
+    opt_ms = _cuda_ms(state.optimizer.step, 5)
+    host_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state.optimizer.step()
+        host_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with _profile() as prof:
+        for b in batches[:2]:
+            trainer.train_step(state, b)
+        torch.cuda.synchronize()
+    busy_ms = _device_us(prof) / 2e3
+    by_op = sorted(((e.key, e.self_device_time_total / 2e3) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+                   key=lambda kv: -kv[1])[:12]
+    by_kernel = sorted(([e.key[:100], e.self_device_time_total / 2e3, e.count // 2]
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                       key=lambda kv: -kv[1])[:10]
+    model.image_encoder.backbone.remat = True
+    remat_ms, remat_windows, remat_peak = _train_step_times(trainer, state, batches, 1)
+    model.image_encoder.backbone.remat = False
+    n_params = sum(1 for p in model.parameters() if p.requires_grad)
+    out["trainer"] = {
+        "batch": B, "image": IMAGE, "learning_rate": TRAIN_LR, "losses": losses,
+        "train_step_ms": step_ms, "train_step_ms_windows": windows,
+        "samples_per_s": B / (step_ms / 1e3), "peak_device_bytes": peak,
+        "optimizer_step_ms": opt_ms, "optimizer_step_host_ms": 1e3 * float(np.median(host_s)),
+        "trainable_tensors": n_params, "host_syncs_in_a_step": syncs,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+        "device_ms_by_op_per_step": dict(by_op), "top_kernels_ms_launches_per_step": by_kernel,
+        "remat": {"train_step_ms": remat_ms, "windows": remat_windows,
+                  "peak_device_bytes": remat_peak},
+        "fused_gated_residual_launches": {"per_train_step": launches_per_step,
+                                          "per_eval_forward": launches_per_eval}}
+    checks = {"finite losses (Trainer)": bool(np.isfinite(losses).all()),
+              "no host sync in a train step": not syncs,
+              "2 launches a train step": launches_per_step == 2,
+              "2 launches an eval forward": launches_per_eval == 2}
+    del model, trainer, state, batches, prof
+    torch.cuda.empty_cache()
+
+    # End to end: train_transformer.main on a synthetic split, twice (once cut
+    # by a SIGTERM and resumed), then forecast_transformer on the best epoch.
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        t0 = time.perf_counter()
+        path = make_synthetic_dataset(os.path.join(tmp, "d"), num_train=TRAIN_ROWS,
+                                      num_test=CLI_ROWS, seed=0, write_images=False,
+                                      rows_per_image=CLI_ROWS_PER_IMAGE)
+        for split in ("train", "test"):
+            paths = load_visuelle2(path, split, demand=True, output_len=12).image_paths
+            unique, row_to_img = ImageStore.unique_paths(paths)
+            pixels = np.random.default_rng(1 if split == "train" else 0).integers(
+                0, 256, (len(unique), IMAGE, IMAGE, 3), dtype=np.uint8)
+            ImageStore(pixels, row_to_img).write_cache(
+                ImageStore.cache_path(path, split, IMAGE), paths)
+        out["dataset_setup_s"] = time.perf_counter() - t0
+        steps_per_epoch = TRAIN_ROWS // B
+        evals_per_epoch = -(-CLI_ROWS // B)
+        argv = ["--dataset_path", path, "--model", "gated_v4", "--demand", "1",
+                "--device", dev.type, "--image_arch", TRAIN_ARCH,
+                "--bf16_backbone", "--batch_size", str(B), "--image_size", str(IMAGE),
+                "--epochs", str(TRAIN_EPOCHS), "--learning_rate", str(TRAIN_LR)]
+
+        def train(label, ckpt_dir, *extra):
+            zero_counts()
+            text = io.StringIO()
+            t = time.perf_counter()
+            code = 0
+            with contextlib.redirect_stdout(text):
+                try:
+                    train_transformer.main(argv + ["--ckpt_dir", ckpt_dir, *extra])
+                except SystemExit as e:
+                    code = e.code
+            with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+                log = [json.loads(line) for line in f]
+            out[label] = {"exit": code, "wall_s": time.perf_counter() - t,
+                          "launches": {n: w.launches for n, w in counted.items()},
+                          "tail": text.getvalue().strip().splitlines()[-2:]}
+            return code, log
+
+        full_dir, cut_dir = os.path.join(tmp, "full"), os.path.join(tmp, "cut")
+        trace_dir = os.path.join(tmp, "trace")
+        code, full_log = train("uninterrupted", full_dir, "--trace_dir", trace_dir)
+        epochs = [r for r in full_log if "val_wWAPE" in r]
+        ck = CheckpointManager(full_dir, read_only=True)
+        last = torch.load(os.path.join(full_dir, "last", "state.pt"), map_location="cpu",
+                          weights_only=True)
+        want_steps = TRAIN_EPOCHS * steps_per_epoch
+        want_launches = 2 * (want_steps + TRAIN_EPOCHS * evals_per_epoch)
+        checks.update({
+            "uninterrupted: exit 0": code == 0,
+            "uninterrupted: one trace of step 2": [f.endswith(".json") for f in
+                                                   os.listdir(trace_dir)] == [True],
+            "uninterrupted: epochs logged": [r["epoch"] for r in epochs] == list(
+                range(TRAIN_EPOCHS)),
+            "uninterrupted: finite losses": all(np.isfinite(r["train_loss"]) for r in epochs),
+            "uninterrupted: steps": last["step"] == want_steps and last["fit_epoch"] ==
+            TRAIN_EPOCHS,
+            "uninterrupted: slots": os.path.isfile(os.path.join(full_dir, "hparams.json"))
+            and ck.best_model_path is not None and os.path.isdir(os.path.join(full_dir, "last")),
+            "uninterrupted: launches": out["uninterrupted"]["launches"] == {
+                n: (want_launches if n == "fused_gated_residual" else 0) for n in counted}})
+
+        # The same command cut by a SIGTERM at a step boundary of epoch 0.
+        original = loop.Trainer.train_step
+        done = []
+
+        def train_step(self, state, batch):
+            result = original(self, state, batch)
+            done.append(1)
+            if len(done) == TRAIN_PREEMPT_AFTER:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return result
+
+        loop.Trainer.train_step = train_step
+        try:
+            code, cut_log = train("preempted", cut_dir)
+        finally:
+            loop.Trainer.train_step = original
+        checks["preempted: exit 143"] = code == 143
+        # metrics.jsonl holds numbers: the flag is logged as 1.0.
+        checks["preempted: saved at the step boundary"] = bool(cut_log[-1].get("preempted")) \
+            and cut_log[-1]["steps_into_epoch"] == TRAIN_PREEMPT_AFTER
+        code, resumed_log = train("resumed", cut_dir, "--resume_from", "auto")
+        resumed_epochs = [r for r in resumed_log if "val_wWAPE" in r]
+        resumed_last = torch.load(os.path.join(cut_dir, "last", "state.pt"),
+                                  map_location="cpu", weights_only=True)
+        resumed_steps = want_steps - TRAIN_PREEMPT_AFTER
+        checks.update({
+            "resumed: exit 0": code == 0,
+            "resumed: epochs": [r["epoch"] for r in resumed_epochs] == list(
+                range(TRAIN_EPOCHS)),
+            "resumed: same step count": resumed_last["step"] == want_steps,
+            "resumed: only the remaining steps": out["resumed"]["launches"][
+                "fused_gated_residual"] == 2 * (resumed_steps + TRAIN_EPOCHS * evals_per_epoch)})
+        out["resumed"]["gap_final_val_wWAPE"] = resumed_epochs[-1]["val_wWAPE"] - \
+            epochs[-1]["val_wWAPE"]
+
+        # The best epoch scored through forecast_transformer --ckpt_path.
+        best = ck.best_model_path
+        best_epoch = int(os.path.basename(best))
+        logged = next(r["val_wWAPE"] for r in epochs if r["epoch"] == best_epoch)
+        zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            r = forecast_transformer.main(["--dataset_path", path, "--ckpt_path", best,
+                                           "--device", dev.type,
+                                           "--bf16_backbone", "--batch_size", str(B),
+                                           "--image_size", str(IMAGE)])
+        out["forecast"] = {"best_epoch": best_epoch, "wape": r.wape, "logged_val_wWAPE": logged,
+                           "rel_diff": abs(r.wape - logged) / abs(logged),
+                           "forwards": r.forwards, "launches": kernel.launches}
+        checks["forecast --ckpt_path: WAPE"] = out["forecast"]["rel_diff"] <= TRAIN_WAPE_RTOL
+        checks["forecast --ckpt_path: launches"] = kernel.launches == 2 * r.forwards
+        out["epochs"] = epochs
+    _emit({"phase": "train", **card, "model": "gated_v4", "batch": B, "image": IMAGE,
+           "embedding_dim": 32, "hidden_dim": 64, "bf16_backbone": True,
+           "train_rows": TRAIN_ROWS, "test_rows": CLI_ROWS, "epochs": TRAIN_EPOCHS,
+           "timing": "train_step_ms: CUDA events over 8 distinct device batches after 2 "
+                     "warm-up steps, the median of the windows; optimizer_step_ms: CUDA "
+                     "events over 5 calls, optimizer_step_host_ms: host clock of one call; "
+                     "device busy: profiler over 2 steps",
+           **out, "wape_rtol": TRAIN_WAPE_RTOL,
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"train: {name}")
+    return out["trainer"]["fused_gated_residual_launches"]
 
 
 def main():
@@ -1252,6 +1722,12 @@ def main():
                        "cross_attn_rnn_demand": demand_times["forecasts_per_s"]},
         forward_busy_ms={"gated_v4": v4_times["forward_device_busy_ms"],
                          "cross_attn_rnn_demand": demand_times["forward_device_busy_ms"]})
+
+    # 16c.–16e. training: the kernels under autograd, card vs CPU, full width ------
+    train_kernel_err = _train_kernel_phase(dev, card, kernel, plain, mha, mha_plain,
+                                           gcd_block_mask)
+    _train_parity_phase(dev, card, kernel)
+    train_launches = _train_phase(dev, card, zero_counts, counted)
     per_call = {}
     with torch.inference_mode():
         for mod, args in zip(add_mods, add_calls):
@@ -1418,7 +1894,11 @@ def main():
         "launches": launches,
         "max_abs_err": max(max(errs.values()), fusion_err), "tol": KERNEL_ATOL,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "bound_simt_f32_ms": bound_simt_ms, "library_ms": None}, {
+        "bound_simt_f32_ms": bound_simt_ms, "library_ms": None,
+        "launches_train": train_launches,
+        "train_max_abs_err": train_kernel_err["fused_gated_residual"],
+        "backward": "torch ops (the formula, g recomputed from the saved inputs); "
+                    "no backward kernel"}, {
         "name": "fused_gated_mha", "route": "cuda",
         "source": "visuelle2_tpu_torch/csrc/gated_mha.cu",
         "replaces": "visuelle2_tpu/ops/pallas/gated_mha.py:107",
@@ -1429,6 +1909,7 @@ def main():
         "bound_ms": mix("bound_us"),
         "bound_by": roofline.f32_accurate_bound_ms(mix_bytes, mix_flops)[1],
         "bound_simt_f32_ms": mix("bound_simt_f32_us"), "library_ms": None,
+        "train_max_abs_err": train_kernel_err["fused_gated_mha"],
         "by_variant_us": {v: {k: per_variant[v][k] for k in
                               ("kernel_device_us", "plain_device_us", "bound_us")}
                           for v in per_variant}}, {

@@ -106,7 +106,9 @@ def test_image_pooled_encoder_bf16_matches_jax(seed):
                       .apply(variables, imgs))
     tm = load_jax_variables(
         tenc.ImagePooledEncoder(16, arch="tiny", dtype=torch.bfloat16), variables).eval()
-    assert tm.backbone.conv1.weight.dtype == torch.bfloat16
+    # float32 masters, run in bf16 (the JAX param_dtype / dtype split)
+    assert tm.backbone.conv1.weight.dtype == torch.float32
+    assert tm.backbone.conv1.compute_dtype == torch.bfloat16
     assert tm.backbone.bn1.running_var.dtype == torch.float32
     got = tm(torch.from_numpy(imgs))
     assert got.dtype == torch.float32  # the bf16 pooled mean is cast to f32

@@ -128,6 +128,22 @@ def test_forecast_clis_need_cuda_unless_asked(cli, tmp_path):
     assert list(tmp_path.iterdir()) == []
 
 
+def test_train_cli_needs_cuda_unless_asked(tmp_path):
+    """``python -m visuelle2_tpu_torch.cli.train_transformer`` raises without
+    a card (``--device`` is ``cuda`` by default) and writes no file."""
+    code = ("import sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "import runpy\n"
+            "sys.argv = ['train_transformer', '--ckpt_dir', 'ck']\n"
+            "runpy.run_module('visuelle2_tpu_torch.cli.train_transformer', "
+            "run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr, out.stderr[-2000:]
+    assert list(tmp_path.iterdir()) == []
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
@@ -148,6 +164,10 @@ def test_importing_the_port_loads_no_jax():
         "import visuelle2_tpu_torch.perf.additive_split, visuelle2_tpu_torch.perf.gated_split\n"
         "import visuelle2_tpu_torch.cli.forecast_transformer, visuelle2_tpu_torch.cli.forecast_dl\n"
         "import visuelle2_tpu_torch.data.synthetic, visuelle2_tpu_torch.eval.forecast\n"
+        "import visuelle2_tpu_torch.cli.train_transformer, visuelle2_tpu_torch.ops.dropout\n"
+        "import visuelle2_tpu_torch.train.optim, visuelle2_tpu_torch.train.loop\n"
+        "import visuelle2_tpu_torch.train.checkpoint, visuelle2_tpu_torch.train.hparams\n"
+        "import visuelle2_tpu_torch.utils.tracing\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(n for n in new if n.split('.')[0] in %r)\n"
         "assert 'jax' not in sys.modules and not bad, bad\n"

@@ -17,9 +17,13 @@ Ported so far: the eval forwards of the seq2seq family (``gtm``, ``m4ft``,
 the HTTP server that serves them (``models.build``,
 ``eval.export.make_forecaster``, ``eval.server.make_server``), and scoring a
 dataset's test split (``data``, ``eval.forecast.score_split`` and the CLIs
-``cli.forecast_transformer`` and ``cli.forecast_dl``).  Entry points put the
-model on ``cuda`` unless the caller passes ``device="cpu"``
-(``_device.resolve_device``, ``--device`` on the CLIs).
+``cli.forecast_transformer`` and ``cli.forecast_dl``), and training the
+seq2seq family (train mode of its modules, ``train.optim.Adafactor``,
+``train.loop.Trainer``, ``train.checkpoint``, ``train.hparams`` and
+``cli.train_transformer``; ``forecast_transformer --ckpt_path`` scores a
+trained checkpoint).  Entry points put the model on ``cuda`` unless the
+caller passes ``device="cpu"`` (``_device.resolve_device``, ``--device`` on
+the CLIs).
 
 Numeric traps the tests guard (each is restated where it lives):
 
@@ -32,5 +36,10 @@ Numeric traps the tests guard (each is restated where it lives):
   backbone returns an NCHW view of channels_last memory;
 * attention masks are additive 0 / −inf; the trend encoder has 4 heads;
 * cuDNN runs f32 convolutions in TF32 by default: comparisons in f32 set
-  ``torch.backends.cudnn.allow_tf32 = False``.
+  ``torch.backends.cudnn.allow_tf32 = False``;
+* the bf16 backbone keeps float32 master weights, cast on each call, as the
+  JAX ``param_dtype``: an optimizer update would vanish in a bf16 weight;
+* a kernel wrapper called on inputs that need a gradient runs under a
+  ``torch.autograd.Function`` whose backward is torch ops (the Pallas
+  originals have no VJP either).
 """

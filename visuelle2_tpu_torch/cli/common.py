@@ -1,6 +1,7 @@
-"""Shared CLI plumbing, counterpart of the eval side of
-``visuelle2_tpu/cli/common.py``: the common flags, dataset and loader
-construction, the ``--quantize`` gate and the JSONL metrics log.
+"""Shared CLI plumbing, counterpart of ``visuelle2_tpu/cli/common.py``: the
+common flags, dataset and loader construction, the ``--quantize`` gate, the
+train CLIs' prologue (``prepare_initial_state``: ``--resume_from``) and the
+JSONL metrics log.
 
 The flags are the JAX CLIs' own, plus ``--device`` (default ``cuda``; the
 tests pass ``cpu``): the CLI form of the port's ``device=`` rule.
@@ -31,8 +32,12 @@ from visuelle2_tpu_torch.models.base import VocabSizes
 # Flags the forecast CLIs accept but whose work is ported later: a
 # non-default value raises, naming where it lands.
 LATER_FLAGS = {
-    "ckpt_path": "ROADMAP Queue 1 item 8 (training: checkpoints and hparams.json)",
     "export": "ROADMAP Queue 1 item 13 (serving: the artifact file)",
+}
+# forecast_dl's checkpoints come from the CrossAttnRNN trainer.
+DL_LATER_FLAGS = {
+    **LATER_FLAGS,
+    "ckpt_path": "ROADMAP Queue 1 item 8b (CrossAttnRNN training and its checkpoints)",
 }
 
 
@@ -71,7 +76,8 @@ def add_common_args(p: argparse.ArgumentParser):
 def add_forecast_args(p, *, dump_help: str):
     """The flags both forecast CLIs add to their model flags."""
     p.add_argument("--ckpt_path", type=str, default="",
-                   help="checkpoint to score (ported with training)")
+                   help="checkpoint to score: a trainer's directory or one of its "
+                        "epoch directories")
     p.add_argument("--export", type=str, default="",
                    help="write a serving artifact (ported with serving)")
     # w8a8 calibration (read once --quantize w8a8 is ported)
@@ -102,9 +108,9 @@ def resolve_cli_device(args) -> torch.device:
     return torch.device(f"cuda:{args.gpu_num}")
 
 
-def check_later_flags(args) -> None:
+def check_later_flags(args, later=LATER_FLAGS) -> None:
     """Raise for a forecast flag whose work is not ported yet."""
-    for flag, where in LATER_FLAGS.items():
+    for flag, where in later.items():
         if getattr(args, flag, ""):
             raise NotImplementedError(f"--{flag} is ported in {where}")
     resolve_quantize(args)
@@ -129,7 +135,8 @@ def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test
     ``dedup_eval_images`` makes non-train loaders ship unique-image batches
     (identical outputs, backbone FLOPs divided by the photo duplication
     factor); ``dedup_train_images`` asks the train loader for the grouped
-    sampler, which raises until ROADMAP Queue 1 item 11.  ``pin_memory``
+    sampler, which raises until ROADMAP Queue 1 item 11 (``--dedup_images 1``
+    on a train CLI).  ``pin_memory``
     pins every batch (a CUDA target).  The gtm_v1 text featurizer arrives
     with that model (item 10).
     """
@@ -174,6 +181,37 @@ def score_test_split(args, model, loader, norm_scalar: float):
     print(f"WAPE: {result.wape}")
     print(f"MAE: {result.mae}")
     return result
+
+
+def prepare_initial_state(trainer, loaders, args):
+    """The train CLIs' prologue: a fresh state, or the one ``--resume_from
+    DIR|auto`` restores.  Returns ``(state, start_epoch, skip_steps)``;
+    ``skip_steps`` > 0 means the state already holds that many updates of
+    ``start_epoch`` (a mid-epoch save).  ``auto`` resumes from ``--ckpt_dir``
+    when it holds a checkpoint and starts fresh when it does not, so the
+    same command can be rerun after a preemption.  ``--pretrained_backbone``
+    raises until its port lands."""
+    from visuelle2_tpu_torch.train.checkpoint import CheckpointManager
+
+    if getattr(args, "pretrained_backbone", ""):
+        raise NotImplementedError("--pretrained_backbone is ported in ROADMAP Queue 1 item 13 "
+                                  "(models/pretrained.py)")
+    state = trainer.init_state()
+    if not getattr(args, "resume_from", ""):
+        return state, 0, 0
+    auto = args.resume_from == "auto"
+    resume_dir = args.ckpt_dir if auto else args.resume_from
+    try:
+        src = CheckpointManager(resume_dir, read_only=True)
+        state, start_epoch, skip_steps = src.restore_latest(state)
+    except FileNotFoundError as e:
+        if not auto:
+            raise SystemExit(f"--resume_from: {e}")
+        print(f"--resume_from auto: {resume_dir} empty, starting fresh")
+        return state, 0, 0
+    skipping = f" skipping {skip_steps} done steps" if skip_steps else ""
+    print(f"resumed from {resume_dir} -> epoch {start_epoch} (step {state.step}){skipping}")
+    return state, start_epoch, skip_steps
 
 
 class JsonlLogger:

@@ -7,8 +7,9 @@
 prints WAPE / MAE / forecasts/s / GFLOPs per sample.  The horizon: Demand
 (``--new_product 1``) forecasts 12 weeks, task 1 (2-10) 10, task 0 (2-1)
 ``--output_len``.  Without ``--ckpt_path`` it scores a model drawn from
-``--seed``; ``--ckpt_path``, ``--export`` and a ``--quantize`` mode raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``--seed``; ``--ckpt_path`` (CrossAttnRNN training is ROADMAP item 8b),
+``--export`` and a ``--quantize`` mode raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import argparse
 import torch
 
 from visuelle2_tpu_torch.cli.common import (
+    DL_LATER_FLAGS,
     add_common_args,
     add_forecast_args,
     build_loaders,
@@ -49,7 +51,7 @@ def make_model(args, vocab, output_len, *, device=None, generator=None):
 
 def run(args):
     print(args)
-    check_later_flags(args)
+    check_later_flags(args, DL_LATER_FLAGS)
     demand = bool(args.new_product)
     output_len = output_len_of(args)
     device = resolve_cli_device(args)

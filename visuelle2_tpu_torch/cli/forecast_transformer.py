@@ -6,10 +6,14 @@ split, counterpart of ``visuelle2_tpu/cli/forecast_transformer.py``.
 
 prints WAPE / MAE / forecasts/s / GFLOPs per sample / peak device memory.
 The flags are the JAX CLI's (its train parser's and its own, with the
-``--num_layers`` alias) plus ``--device`` (``cuda`` unless given).  Without
-``--ckpt_path`` it scores a model drawn from ``--seed``, as the JAX CLI does
-without one; ``--ckpt_path``, ``--export`` and a ``--quantize`` mode raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``--num_layers`` alias) plus ``--device`` (``cuda`` unless given).
+``--ckpt_path`` (a ``train_transformer`` directory or one of its epoch
+directories; the best epoch by default) restores the parameters and
+BatchNorm statistics; the structural flags not passed are filled from its
+``hparams.json``, a conflicting one is an error, and the dataset is checked
+against the manifest.  Without it the CLI scores a model drawn from
+``--seed``, as the JAX CLI does.  ``--export`` and a ``--quantize`` mode
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -27,6 +31,12 @@ from visuelle2_tpu_torch.cli.common import (
     score_test_split,
 )
 from visuelle2_tpu_torch.models import build
+from visuelle2_tpu_torch.train.checkpoint import CheckpointManager, resolve_ckpt_path
+from visuelle2_tpu_torch.train.hparams import (
+    TRANSFORMER_STRUCTURAL,
+    apply_ckpt_hparams,
+    check_dataset_compat,
+)
 from visuelle2_tpu_torch.utils.seeding import seed_everything
 
 TRANSFORMER_MODELS = ["gtm", "m4ft", "gated_v1", "gated_v2", "gated_v3", "gated_v4",
@@ -46,6 +56,7 @@ def make_model(args, vocab, *, device=None, generator=None):
         use_img=bool(args.use_img),
         image_arch=args.image_arch,
         image_dtype=torch.bfloat16 if args.bf16_backbone else torch.float32,
+        image_remat=bool(getattr(args, "remat", False)),
     )
     if args.model == "gtm_v1":
         return build("gtm_v1", device=device, generator=generator, **kw)
@@ -53,7 +64,16 @@ def make_model(args, vocab, *, device=None, generator=None):
                  query_modality=args.query_modality, **kw)
 
 
-def run(args):
+def run(args, parser=None, argv=None):
+    """Score the test split; ``parser`` and ``argv`` tell ``--ckpt_path``
+    which flags were passed (the command line's when not given)."""
+    hp = None
+    if args.ckpt_path:
+        ckpt_root, ckpt_step = resolve_ckpt_path(args.ckpt_path)
+        # Read-only: raises for a directory that does not exist.
+        ckpt = CheckpointManager(ckpt_root, read_only=True)
+        hp = apply_ckpt_hparams(args, parser or build_parser(), TRANSFORMER_STRUCTURAL,
+                                argv)
     print(args)
     check_later_flags(args)
     demand = bool(args.demand)
@@ -63,7 +83,12 @@ def run(args):
     loaders, vocab, norm_scalar = build_loaders(
         args, demand=demand, output_len=args.output_len, splits=("test",),
         dedup_eval_images=bool(args.dedup_images), pin_memory=device.type == "cuda")
+    check_dataset_compat(hp, vocab, norm_scalar)
     model = make_model(args, vocab, device=device, generator=seed_everything(args.seed))
+    if args.ckpt_path:
+        ckpt.restore_for_eval(model, ckpt_step)
+        print(f"restored {ckpt_root} epoch "
+              f"{ckpt.best_step() if ckpt_step is None else ckpt_step}")
     return score_test_split(args, model, loaders["test"], norm_scalar)
 
 
@@ -110,7 +135,8 @@ def build_parser(default_model="gtm"):
 
 
 def main(argv=None):
-    return run(build_parser().parse_args(argv))
+    parser = build_parser()
+    return run(parser.parse_args(argv), parser, argv)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,116 @@
+"""Train a GTM-family model (GTM / M4FT / Gated v1–v4), counterpart of
+``visuelle2_tpu/cli/train_transformer.py``.
+
+    python3 -m visuelle2_tpu_torch.cli.train_transformer --dataset_path D \\
+        --model gated_v4 --bf16_backbone --ckpt_dir ckpt_gtm/
+
+The flags and defaults are the JAX CLI's (global-norm clip 0.5, the best
+epoch kept by ``val_wWAPE``, ``--resume_from DIR|auto``, ``--accum_steps``,
+``--remat``, ``--trace_dir``, ``--autosave_minutes``, early stopping,
+``--learning_rate`` 0 = the fairseq relative-step schedule) plus
+``--device`` (``cuda`` unless given).  It writes ``<ckpt_dir>/<epoch>/``,
+``<ckpt_dir>/last/``, ``hparams.json`` (the structural flags, the
+vocabulary sizes and the norm scalar: ``forecast_transformer --ckpt_path``
+reads them) and ``metrics.jsonl``, and prints the best checkpoint's path.
+After a SIGTERM it saves at the next step boundary and exits 143; the same
+command with ``--resume_from auto`` continues at the next step.
+
+``gtm_v1`` raises (ROADMAP Queue 1 item 10), as do ``--pretrained_backbone``
+(item 13) and ``--dedup_images 1`` (the grouped sampler, item 11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+from visuelle2_tpu_torch.cli.common import (
+    JsonlLogger,
+    add_common_args,
+    build_loaders,
+    prepare_initial_state,
+    resolve_cli_device,
+)
+from visuelle2_tpu_torch.cli.forecast_transformer import add_model_args, make_model
+from visuelle2_tpu_torch.train.checkpoint import CheckpointManager
+from visuelle2_tpu_torch.train.hparams import save_hparams
+from visuelle2_tpu_torch.train.loop import TrainConfig, Trainer
+from visuelle2_tpu_torch.utils.seeding import seed_everything
+
+GRAD_CLIP = 0.5  # the transformer family's global-norm clip
+SAVE_TOP_K = 1
+
+
+def hparams_of(args, vocab, norm_scalar) -> dict:
+    """The manifest the JAX trainer writes, key for key."""
+    return {
+        "cli": "train_transformer", "model": args.model,
+        "demand": int(args.demand), "output_len": int(args.output_len),
+        "embedding_dim": int(args.embedding_dim), "hidden_dim": int(args.hidden_dim),
+        "num_attn_heads": int(args.num_attn_heads),
+        "num_hidden_layers": int(args.num_hidden_layers),
+        "use_img": int(args.use_img), "use_text": int(args.use_text),
+        "use_encoder_mask": int(args.use_encoder_mask),
+        "autoregressive": int(args.autoregressive),
+        "query_modality": args.query_modality, "image_arch": args.image_arch,
+        "vocab": {"num_cat": vocab.num_cat, "num_col": vocab.num_col,
+                  "num_fab": vocab.num_fab, "num_store": vocab.num_store},
+        "norm_scalar": float(norm_scalar),
+    }
+
+
+def run(args):
+    print(args)
+    if args.model == "gtm_v1":
+        raise NotImplementedError("model 'gtm_v1' is ported in ROADMAP Queue 1 item 10 "
+                                  "(remaining models)")
+    device = resolve_cli_device(args)
+    loaders, vocab, norm_scalar = build_loaders(
+        args, demand=bool(args.demand), output_len=args.output_len,
+        dedup_train_images=bool(args.dedup_images),
+        dedup_eval_images=True,  # the same outputs; faster per-epoch validation
+        pin_memory=device.type == "cuda")
+    model = make_model(args, vocab, device=device, generator=seed_everything(args.seed))
+    trainer = Trainer(model, TrainConfig(
+        epochs=args.epochs, seed=args.seed,
+        grad_clip=GRAD_CLIP, norm_scalar=norm_scalar,
+        trace_dir=args.trace_dir or None, accum_steps=args.accum_steps,
+        autosave_minutes=args.autosave_minutes,
+        early_stop_patience=args.early_stop_patience,
+        early_stop_min_delta=args.early_stop_min_delta,
+        learning_rate=args.learning_rate or None))
+    ckpt = CheckpointManager(args.ckpt_dir, save_top_k=SAVE_TOP_K)
+    save_hparams(args.ckpt_dir, hparams_of(args, vocab, norm_scalar))
+    log = JsonlLogger(os.path.join(args.ckpt_dir, "metrics.jsonl"), wandb_args=args)
+    state, start_epoch, skip_steps = prepare_initial_state(trainer, loaders, args)
+
+    t0 = time.time()
+    try:
+        trainer.fit(loaders["train"], loaders["test"], state=state, checkpointer=ckpt,
+                    log_fn=log, start_epoch=start_epoch, skip_steps=skip_steps)
+    finally:
+        log.close()
+    if trainer.history and trainer.history[-1].get("preempted"):
+        # 128 + SIGTERM: the pipeline stops in the grace window.
+        print(f"[Training Preempted] state saved at epoch {trainer.history[-1]['epoch']}; "
+              f"continue with --resume_from {args.ckpt_dir}")
+        raise SystemExit(143)
+    print(f"[Training Completed] Time: {(time.time() - t0) / 60:.2f} minutes")
+    print(f"Best Model Path: {ckpt.best_model_path}")
+    return ckpt.best_model_path
+
+
+def build_parser(default_model="gtm"):
+    p = argparse.ArgumentParser(description="GTM-family trainer on Visuelle 2.0")
+    add_common_args(p)
+    add_model_args(p, default_model)
+    return p
+
+
+def main(argv=None):
+    return run(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

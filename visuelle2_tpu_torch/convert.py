@@ -21,8 +21,12 @@ torch module                flax leaves                        transform
 
 The bridge is strict: every torch parameter and persistent buffer is assigned
 exactly once and every JAX leaf is consumed; a leftover on either side, or a
-shape mismatch, raises.  Values are cast to the parameter's dtype on copy
-(bf16 backbone convolutions round as the JAX package's per-call cast does).
+shape mismatch, raises.  Every parameter is float32, as the JAX package's
+``param_dtype``: the bf16 backbone keeps float32 masters and casts them on
+each call (``models/resnet.py::Conv2d``), so a copy rounds nothing.
+
+``to_jax_variables`` is the way back: the port's parameters and statistics as
+a flax-layout numpy tree, for comparing the two frameworks leaf by leaf.
 """
 
 from __future__ import annotations
@@ -59,6 +63,14 @@ def _hwio_to_oihw(a):
 
 def _same(a):
     return a
+
+
+def _oihw_to_hwio(a):
+    return np.transpose(a, (2, 3, 1, 0))
+
+
+# Each forward transform's inverse.
+_INVERSE = {_t: _t, _hwio_to_oihw: _oihw_to_hwio, _same: _same}
 
 
 # torch module type -> [(collection, flax leaf, torch attribute, transform)]
@@ -124,3 +136,25 @@ def load_jax_variables(model: nn.Module, variables) -> nn.Module:
         raise ValueError(f"JAX leaves not consumed by the port: {leftover}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def to_jax_variables(model: nn.Module) -> dict:
+    """``{"params": ..., "batch_stats": ...}`` of ``model`` as nested dicts
+    of float32 numpy arrays in the flax layout: ``load_jax_variables``'s
+    inverse."""
+    out = {"params": {}, "batch_stats": {}}
+    for mod_name, mod in model.named_modules():
+        rules = _rules_for(mod)
+        if rules is None:
+            continue
+        path = tuple(mod_name.split(".")) if mod_name else ()
+        for col, leaf, attr, transform in rules:
+            value = getattr(mod, attr, None)
+            if value is None:
+                continue
+            node = out[col]
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = np.ascontiguousarray(
+                _INVERSE[transform](value.detach().float().cpu().numpy()))
+    return {col: tree for col, tree in out.items() if tree}

@@ -17,6 +17,7 @@ same places.
 
 from __future__ import annotations
 
+import functools
 import os
 import zlib
 from typing import Optional, Sequence
@@ -31,14 +32,20 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=None)
+def _normalize_constants(dtype, device):
+    """255, the mean and the std in ``dtype`` on ``device``, made once: a
+    tensor made from Python numbers on the card is a copy the host waits
+    for, which a train step must not make."""
+    return tuple(torch.tensor(v, dtype=dtype, device=device)
+                 for v in (255.0, IMAGENET_MEAN, IMAGENET_STD))
+
+
 def normalize_images(uint8_nhwc: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 [..., H, W, 3] -> normalized [..., H, W, 3] in ``dtype``
     (torchvision ``ToTensor`` + ``Normalize``)."""
-    dev = uint8_nhwc.device
-    x = uint8_nhwc.to(dtype) / torch.tensor(255.0, dtype=dtype, device=dev)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=dev)
-    std = torch.tensor(IMAGENET_STD, dtype=dtype, device=dev)
-    return (x - mean) / std
+    scale, mean, std = _normalize_constants(dtype, uint8_nhwc.device)
+    return (uint8_nhwc.to(dtype) / scale - mean) / std
 
 
 class ImageStore:

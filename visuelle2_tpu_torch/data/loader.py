@@ -1,5 +1,4 @@
-"""Host-side batch assembly, counterpart of ``visuelle2_tpu/data/loader.py``
-(the eval side).
+"""Host-side batch assembly, counterpart of ``visuelle2_tpu/data/loader.py``.
 
 Batches are numpy gathers from the preprocessed arrays and the image store,
 padded to a static batch size with a ``mask`` of real rows, handed out as
@@ -153,5 +152,10 @@ class BatchLoader:
         return self._split_blocks(order)
 
     def __iter__(self) -> Iterator[Batch]:
-        for idx in self._epoch_index_blocks():
+        return self.iter_from(0)
+
+    def iter_from(self, skip_blocks: int) -> Iterator[Batch]:
+        """The epoch from batch ``skip_blocks`` on: the skipped batches are
+        never assembled (a mid-epoch resume, ``train/loop.py``)."""
+        for idx in self._epoch_index_blocks()[skip_blocks:]:
             yield self._to_tensors(self._gather_numpy(idx, self.batch_size))

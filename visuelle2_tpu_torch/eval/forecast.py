@@ -20,16 +20,14 @@ import dataclasses
 import os
 import statistics
 import time
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from visuelle2_tpu_torch.eval.profiler import batch_flops, peak_memory_bytes
 from visuelle2_tpu_torch.ops.metrics import eval_metrics, finalize_metrics
-from visuelle2_tpu_torch.train.loop import expand_mask, target_and_pred
-
-SUM_KEYS = ("abs_err", "abs_gt", "count", "rows")
+from visuelle2_tpu_torch.train.loop import SUM_KEYS, expand_mask, target_and_pred, to_device
 # One-pass keeps the whole split on the device beside the weights, the
 # activations and the allocator's workspace: it may take this share of the
 # device's memory (of the host's on the CPU).
@@ -45,11 +43,6 @@ def one_pass_budget_bytes(device: torch.device) -> int:
     else:
         total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
     return int(ONE_PASS_MEMORY_SHARE * total)
-
-
-def to_device(batch: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
-    # Asynchronous from pinned host memory (the loader pins for a CUDA target).
-    return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
 
 
 def _model_device(model) -> torch.device:

@@ -35,8 +35,8 @@ TREND_LEN = 52  # weeks of Google-trend history per product
 def _require_eval(model: nn.Module) -> None:
     if model.training:
         raise NotImplementedError(
-            "the port runs eval forwards only; training and teacher forcing arrive "
-            "with the training slice, ROADMAP Queue 1 item 8 (call .eval())")
+            "the port runs CrossAttnRNN eval forwards only; its training and teacher "
+            "forcing arrive with ROADMAP Queue 1 item 8b (call .eval())")
 
 
 class _StaticEncodings(nn.Module):

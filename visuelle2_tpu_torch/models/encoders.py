@@ -17,7 +17,13 @@
   encoder under the gcd block mask; ``gated=True`` is gated_v2's encoder,
   whose self-attention runs the fused gated-MHA kernel
 
-Eval mode only: dropout is the identity there, so the port has none yet.
+Train mode drops where the JAX encoders do, at their rates: the GRU
+encoders' outputs (0.1), the attribute embeddings (0.1; each one before the
+sum, or the stack, or the projection), the temporal embedders' outputs (0.2
+GTM / M4FT, 0.1 each feature for CrossAttnRNN), the patch encoder's
+projection (0.1), and the trend encoder's positions (0.1) and layers (0.2).
+``ImagePooledEncoder`` has no dropout, as in the JAX package; ``remat``
+reaches its backbone.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import torch
 from torch import nn
 
 from visuelle2_tpu_torch.data.images import normalize_images
-from visuelle2_tpu_torch.models.resnet import STAGE_BLOCKS, ResNetBackbone
+from visuelle2_tpu_torch.models.resnet import STAGE_BLOCKS, Conv2d, ResNetBackbone
+from visuelle2_tpu_torch.ops.dropout import Dropout
 from visuelle2_tpu_torch.ops.gru import GRU
 from visuelle2_tpu_torch.ops.masks import gcd_block_mask
 from visuelle2_tpu_torch.ops.positional import PositionalEncoding
@@ -36,25 +43,27 @@ from visuelle2_tpu_torch.ops.transformer import TransformerEncoder
 
 
 class TSEmbedder(nn.Module):
-    """GRU over the trend series: [B, T, C] -> outputs [B, T, E]."""
+    """GRU over the trend series: [B, T, C] -> dropout(outputs [B, T, E])."""
 
     def __init__(self, embedding_dim: int, input_dim: int = 3):
         super().__init__()
         self.gru = GRU(input_dim, embedding_dim)
+        self.drop = Dropout(0.1)
 
     def forward(self, x):
-        return self.gru(x)[0]
+        return self.drop(self.gru(x)[0])
 
 
 class SalesEncoder(nn.Module):
-    """GRU over sales history: [B, T, I] -> outputs [B, T, H]."""
+    """GRU over sales history: [B, T, I] -> dropout(outputs [B, T, H])."""
 
     def __init__(self, embedding_dim: int, input_dim: int = 1):
         super().__init__()
         self.gru = GRU(input_dim, embedding_dim)
+        self.drop = Dropout(0.1)
 
     def forward(self, x):
-        return self.gru(x)[0]
+        return self.drop(self.gru(x)[0])
 
 
 class AttributeEncoder(nn.Module):
@@ -77,18 +86,21 @@ class AttributeEncoder(nn.Module):
         self.store = nn.Embedding(num_store, E)
         if combine == "concat_proj":
             self.proj = nn.Linear(4 * E, hidden_dim or E)
+        self.drop = Dropout(0.1)
 
     def forward(self, cat, col, fab, store):
         embs = [self.cat(cat), self.col(col), self.fab(fab), self.store(store)]
         if self.combine == "sum":
+            # Each embedding dropped on its own, then summed.
+            embs = [self.drop(e) for e in embs]
             return embs[0] + embs[1] + embs[2] + embs[3]
         if self.combine == "stack":
-            return torch.stack(embs, dim=1)
-        return self.proj(torch.cat(embs, dim=-1))
+            return self.drop(torch.stack(embs, dim=1))
+        return self.drop(self.proj(torch.cat(embs, dim=-1)))
 
 
 class DummyEmbedder(nn.Module):
-    """GTM temporal encoder: 4 linears -> concat -> fuse."""
+    """GTM temporal encoder: 4 linears -> concat -> fuse -> dropout."""
 
     def __init__(self, embedding_dim: int):
         super().__init__()
@@ -98,15 +110,17 @@ class DummyEmbedder(nn.Module):
         self.month = nn.Linear(1, E)
         self.year = nn.Linear(1, E)
         self.fusion = nn.Linear(4 * E, E)
+        self.drop = Dropout(0.2)
 
     def forward(self, temporal):
         parts = [layer(temporal[:, i: i + 1])
                  for i, layer in enumerate((self.day, self.week, self.month, self.year))]
-        return self.fusion(torch.cat(parts, dim=-1))
+        return self.drop(self.fusion(torch.cat(parts, dim=-1)))
 
 
 class TemporalEmbedder(nn.Module):
-    """M4FT temporal encoder: 4 linears -> concat -> proj to hidden_dim."""
+    """M4FT temporal encoder: 4 linears -> concat -> proj to hidden_dim ->
+    dropout."""
 
     def __init__(self, embedding_dim: int, hidden_dim: int):
         super().__init__()
@@ -116,11 +130,12 @@ class TemporalEmbedder(nn.Module):
         self.month = nn.Linear(1, E)
         self.year = nn.Linear(1, E)
         self.proj = nn.Linear(4 * E, hidden_dim)
+        self.drop = Dropout(0.2)
 
     def forward(self, temporal):
         parts = [layer(temporal[:, i: i + 1])
                  for i, layer in enumerate((self.day, self.week, self.month, self.year))]
-        return self.proj(torch.cat(parts, dim=-1))
+        return self.drop(self.proj(torch.cat(parts, dim=-1)))
 
 
 class TemporalFeatureEncoder(nn.Module):
@@ -131,6 +146,7 @@ class TemporalFeatureEncoder(nn.Module):
     def __init__(self, embedding_dim: int, shared_day_embedding: bool = False):
         super().__init__()
         E = embedding_dim
+        self.drop = Dropout(0.1)
         self.day = nn.Linear(1, E)
         if shared_day_embedding:
             self.week = self.month = self.year = None
@@ -144,7 +160,7 @@ class TemporalFeatureEncoder(nn.Module):
                   else [self.day, self.week, self.month, self.year])
         out = 0.0
         for i, layer in enumerate(layers):
-            out = out + layer(temporal[:, i: i + 1])
+            out = out + self.drop(layer(temporal[:, i: i + 1]))
         return out
 
 
@@ -153,11 +169,13 @@ class ImagePatchEncoder(nn.Module):
     [B, (H/32)·(W/32), E] in f32; ``img_idx`` (optional [N] int) expands the
     features of unique images to rows by gather."""
 
-    def __init__(self, embedding_dim: int, arch: str = "resnet101", dtype=torch.float32):
+    def __init__(self, embedding_dim: int, arch: str = "resnet101", dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.backbone = ResNetBackbone(STAGE_BLOCKS[arch], dtype=dtype)
+        self.backbone = ResNetBackbone(STAGE_BLOCKS[arch], dtype=dtype, remat=remat)
         self.fc = nn.Linear(2048, embedding_dim)
+        self.drop = Dropout(0.1)
 
     def forward(self, images_u8, img_idx=None):
         x = normalize_images(images_u8, dtype=self.dtype).permute(0, 3, 1, 2)
@@ -165,7 +183,7 @@ class ImagePatchEncoder(nn.Module):
         # JAX patch order is that of NHWC, so flatten from NHWC.
         feats = self.backbone(x).permute(0, 2, 3, 1)
         B, H, W, C = feats.shape
-        out = self.fc(feats.reshape(B, H * W, C).float())
+        out = self.drop(self.fc(feats.reshape(B, H * W, C).float()))
         if img_idx is not None:
             out = out.index_select(0, img_idx)
         return out
@@ -179,11 +197,11 @@ class ImagePooledEncoder(nn.Module):
     """
 
     def __init__(self, embedding_dim: int, final_dim: Optional[int] = None,
-                 arch: str = "resnet101", dtype=torch.float32):
+                 arch: str = "resnet101", dtype=torch.float32, remat: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.backbone = ResNetBackbone(STAGE_BLOCKS[arch], dtype=dtype)
-        self.projection = nn.Conv2d(2048, embedding_dim, 1, bias=True, dtype=dtype)
+        self.backbone = ResNetBackbone(STAGE_BLOCKS[arch], dtype=dtype, remat=remat)
+        self.projection = Conv2d(2048, embedding_dim, 1, bias=True, dtype=dtype)
         self.final_proj = (None if final_dim is None
                            else nn.Linear(embedding_dim, final_dim))
 
@@ -211,7 +229,7 @@ class GTrendEmbedder(nn.Module):
         self.input_linear = nn.Linear(num_trends, embedding_dim)
         self.pos = PositionalEncoding(embedding_dim, max_len=trend_len)
         self.encoder = TransformerEncoder(embedding_dim, nhead, num_layers,
-                                          dim_feedforward=2048, gated=gated)
+                                          dim_feedforward=2048, gated=gated, dropout=0.2)
 
     def forward(self, gtrends):
         x = self.pos(self.input_linear(gtrends.transpose(1, 2)))

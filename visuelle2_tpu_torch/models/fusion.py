@@ -18,8 +18,14 @@ Only TG-Fusion (v4) runs a kernel: its gate kernel is the Dense kernel over
 the concatenation ``[ctx, x]`` — rows ``0..C-1`` belong to ctx (Wc), the rest
 to x (Wx) — kept in that JAX layout, ``[in, out]``, and ``_gated_residual``
 hands ``kernel[C:]`` and ``kernel[:C]`` to the fused kernel exactly as the
-JAX package does.  The v1–v3 gates are plain tensor code, as the JAX package
-computes them in plain XLA.
+JAX package does; in training the kernel runs under its autograd function
+(``ops/cuda/gated_fusion.py``: kernel forward, formula backward).  The v1–v3
+gates are plain tensor code, as the JAX package computes them in plain XLA.
+
+Train mode: BatchNorm1d takes the batch's statistics (GTM, the M4FT and
+TARG fusion blocks), and each network drops where the JAX one does — after
+the first layer's ReLU in GTM and the fusion blocks (0.2), after the output
+ReLU in v1, v2 (0.2) and v4 (0.1).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from torch import nn
 from visuelle2_tpu_torch.models.norms import BatchNorm1d
 from visuelle2_tpu_torch.ops.attention import GATE_BIAS_INIT, _Weights
 from visuelle2_tpu_torch.ops.cuda.gated_fusion import fused_gated_residual
+from visuelle2_tpu_torch.ops.dropout import Dropout
 from visuelle2_tpu_torch.ops.transformer import LN_EPS
 
 
@@ -59,7 +66,7 @@ def _concat(img, text, dummy):
 
 class GTMFusionNetwork(nn.Module):
     """Concat fusion: img(E) ⊕ text(4E) ⊕ dummy(E) -> BN -> Linear (no bias)
-    -> ReLU -> Linear(H)."""
+    -> ReLU -> Dropout -> Linear(H)."""
 
     def __init__(self, embedding_dim: int, hidden_dim: int, use_img: bool = True,
                  use_text: bool = True):
@@ -68,23 +75,25 @@ class GTMFusionNetwork(nn.Module):
         self.bn = BatchNorm1d(D)
         self.fc1 = nn.Linear(D, D, bias=False)
         self.fc2 = nn.Linear(D, hidden_dim)
+        self.drop = Dropout(0.2)
 
     def forward(self, img, text, dummy):
         x = self.bn(_concat(img, text, dummy))
-        return self.fc2(torch.relu(self.fc1(x)))
+        return self.fc2(self.drop(torch.relu(self.fc1(x))))
 
 
 class FusionBlock(nn.Module):
-    """BN -> Linear -> ReLU -> Linear."""
+    """BN -> Linear -> ReLU -> Dropout -> Linear."""
 
     def __init__(self, hidden_dim: int):
         super().__init__()
         self.bn = BatchNorm1d(hidden_dim)
         self.fc1 = nn.Linear(hidden_dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, hidden_dim)
+        self.drop = Dropout(0.2)
 
     def forward(self, x):
-        return self.fc2(torch.relu(self.fc1(self.bn(x))))
+        return self.fc2(self.drop(torch.relu(self.fc1(self.bn(x)))))
 
 
 class M4FTFusionNetwork(nn.Module):
@@ -120,11 +129,13 @@ class GatedResidualBlock(nn.Module):
 
 
 class ResidualGatedFusionNetwork(nn.Module):
-    """v1: a gated residual block per modality, concat, Linear -> ReLU."""
+    """v1: a gated residual block per modality, concat, Linear -> ReLU ->
+    Dropout."""
 
     def __init__(self, embedding_dim: int, hidden_dim: int, use_img: bool = True,
                  use_text: bool = True, num_text: int = 4):
         super().__init__()
+        self.drop = Dropout(0.2)
         E = embedding_dim
         self.img_gate = GatedResidualBlock(E) if use_img else None
         self.text_gate = GatedResidualBlock(num_text * E) if use_text else None
@@ -139,13 +150,13 @@ class ResidualGatedFusionNetwork(nn.Module):
         if text is not None:
             parts.append(self.text_gate(_flatten_text(text)))
         parts.append(self.dummy_gate(dummy))
-        return torch.relu(self.fusion_fc(torch.cat(parts, dim=-1)))
+        return self.drop(torch.relu(self.fusion_fc(torch.cat(parts, dim=-1))))
 
 
 class PureGatedFusionNetwork(nn.Module):
-    """v2: concat all, soft gate x + x·σ(Wx + b), Linear -> ReLU.  The gate is
-    a Dense in the JAX package whose bias starts at +2.0; here it is a
-    ``_Weights`` (kernel [in, out]), the type whose init rule honours
+    """v2: concat all, soft gate x + x·σ(Wx + b), Linear -> ReLU -> Dropout.
+    The gate is a Dense in the JAX package whose bias starts at +2.0; here it
+    is a ``_Weights`` (kernel [in, out]), the type whose init rule honours
     ``bias_init``."""
 
     def __init__(self, embedding_dim: int, hidden_dim: int, use_img: bool = True,
@@ -154,11 +165,12 @@ class PureGatedFusionNetwork(nn.Module):
         D = _concat_width(embedding_dim, use_img, use_text)
         self.gate_fc = _Weights(D, D, bias_init=GATE_BIAS_INIT)
         self.fusion_fc = nn.Linear(D, hidden_dim)
+        self.drop = Dropout(0.2)
 
     def forward(self, img, text, dummy):
         x = _concat(img, text, dummy)
         x = x + x * torch.sigmoid(x @ self.gate_fc.kernel + self.gate_fc.bias)
-        return torch.relu(self.fusion_fc(x))
+        return self.drop(torch.relu(self.fusion_fc(x)))
 
 
 # query_modality -> (anchor, context 1, context 2)
@@ -204,11 +216,12 @@ class TARGFusionNetwork(nn.Module):
 
 class TextGuidedFusionNetwork(nn.Module):
     """v4 TG-Fusion: text-anchored soft gates on image and temporal, concat,
-    Linear -> LayerNorm -> ReLU.  Both gates run the fused kernel."""
+    Linear -> LayerNorm -> ReLU -> Dropout.  Both gates run the fused kernel."""
 
     def __init__(self, embedding_dim: int, hidden_dim: int, num_text: int = 4,
                  use_img: bool = True):
         super().__init__()
+        self.drop = Dropout(0.1)
         E = embedding_dim
         C = num_text * E
         self.dummy_gate_fc = _Weights(C + E, E)
@@ -230,4 +243,4 @@ class TextGuidedFusionNetwork(nn.Module):
             parts.insert(0, _gated_residual(img, text_flat, self.img_gate_fc.kernel,
                                             self.img_gate_fc.bias))
         x = self.fusion_fc(torch.cat(parts, dim=-1))
-        return torch.relu(self.fusion_norm(x))
+        return self.drop(torch.relu(self.fusion_norm(x)))

@@ -16,9 +16,14 @@ Decode semantics:
 
 The trend encoder has 4 heads unless it is the gated (v2) one, which takes
 ``num_heads``.  gated_v2 runs the fused gated-MHA kernel three times per
-forward (two trend-encoder layers, one decoder cross-attention) and gated_v4
-the fused gated residual twice.  Eval mode only: training arrives with the
-training slice.
+eval forward (two trend-encoder layers, one decoder cross-attention; in
+training only with dropout off, the JAX rule) and gated_v4 the fused gated
+residual twice per forward, eval or train.
+
+Train mode (``model.train()``) is the JAX ``train=True``: batch statistics
+in every BatchNorm, dropout where the JAX modules have it (ending with
+``Dropout(0.2)`` on the forecast), each mask drawn from the ``generator``
+passed to ``forward`` (``ops/dropout.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from visuelle2_tpu_torch.models.fusion import (
     TARGFusionNetwork,
     TextGuidedFusionNetwork,
 )
+from visuelle2_tpu_torch.ops import dropout
 from visuelle2_tpu_torch.ops.masks import causal_mask
 from visuelle2_tpu_torch.ops.positional import PositionalEncoding
 from visuelle2_tpu_torch.ops.transformer import TransformerDecoder
@@ -82,7 +88,8 @@ class Seq2SeqForecaster(nn.Module):
                  use_encoder_mask: bool = True, autoregressive: bool = False,
                  use_text: bool = True, use_img: bool = True,
                  query_modality: str = "text",
-                 image_arch: str = "resnet101", image_dtype=torch.float32):
+                 image_arch: str = "resnet101", image_dtype=torch.float32,
+                 image_remat: bool = False):
         super().__init__()
         if variant not in VARIANTS:
             raise KeyError(f"unknown variant {variant!r}; known: {sorted(VARIANTS)}")
@@ -108,7 +115,8 @@ class Seq2SeqForecaster(nn.Module):
             combine="concat_proj" if m4ft else "stack", hidden_dim=H)
             if use_text else None)
         self.image_encoder = (ImagePooledEncoder(E, final_dim=H if m4ft else None,
-                                                 arch=image_arch, dtype=image_dtype)
+                                                 arch=image_arch, dtype=image_dtype,
+                                                 remat=image_remat)
                               if use_img else None)
         self.temporal_encoder = TemporalEmbedder(E, H) if m4ft else None
         self.dummy_encoder = None if m4ft else DummyEmbedder(E)
@@ -123,18 +131,22 @@ class Seq2SeqForecaster(nn.Module):
         }[cfg.fusion]()
         self.sales_encoder = SalesEncoder(H)
         self.decoder = TransformerDecoder(H, num_heads, num_layers,
-                                          dim_feedforward=H * 4, variant=cfg.decoder)
+                                          dim_feedforward=H * 4, variant=cfg.decoder,
+                                          dropout=0.1)
         if autoregressive:
             self.pos_encoder = PositionalEncoding(H, max_len=max(output_len, 12))
             self.decoder_fc = nn.Linear(H, 1)
         else:
             self.decoder_fc = nn.Linear(H, output_len)
+        self.forecast_drop = dropout.Dropout(0.2)
 
-    def forward(self, batch):
-        if self.training:
-            raise NotImplementedError(
-                "the port runs eval forwards only; training arrives with the "
-                "training slice, ROADMAP Queue 1 item 8 (call .eval())")
+    def forward(self, batch, *, generator=None):
+        """``(forecast [N, output_len], None)``; in train mode the dropout
+        masks are drawn from ``generator`` (torch's default one if None)."""
+        with dropout.use_generator(generator):
+            return self._forward(batch)
+
+    def _forward(self, batch):
         item_sales = batch.get("X")
         if item_sales is None:
             # Demand batches carry no history: zeros(bs, 1, 2).
@@ -172,4 +184,5 @@ class Seq2SeqForecaster(nn.Module):
         else:
             out = self.decoder(decoder_input[:, None, :], memory)
             forecast = self.decoder_fc(out[:, 0, :])
+        forecast = self.forecast_drop(forecast)
         return forecast.reshape(N, self.output_len), None

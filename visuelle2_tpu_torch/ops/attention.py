@@ -9,19 +9,24 @@ Every module here returns ``(output, probabilities or None)``, as torch's
   Plain tensor code: the JAX package ran it through plain XLA too.
 * ``PureGatedMultiHeadAttention`` / ``HeadSpecificGatedAttention`` — gated_v2's
   cross- and self-attention.  Their weights are ``_Weights`` children in the
-  JAX ``[in, out]`` layout, so the fused kernel reads them as they are; the
-  forward always goes through ``ops/cuda/gated_mha.py::fused_gated_mha``,
+  JAX ``[in, out]`` layout, so the fused kernel reads them as they are.  The
+  JAX rule decides the path: deterministic (eval mode, or dropout off) or at
+  dropout 0 the forward goes through ``ops/cuda/gated_mha.py::fused_gated_mha``,
   which launches the CUDA kernel on the card and runs its plain version on
-  the CPU.  No probabilities.
+  the CPU; in train mode with dropout it runs the plain formula with
+  probability dropout, as the JAX package does (the kernel computes no
+  dropout).  No probabilities.
 * ``GatedCrossAttention`` — gated_v1's query-gated standard MHA (plain XLA in
-  the JAX package, plain tensor code here).  No probabilities.
+  the JAX package, plain tensor code here), its output dropped in train
+  mode.  No probabilities.
 * ``AdditiveAttention`` — the CrossAttnRNN family's Bahdanau attention,
   ``weight_on`` "inputs" or "projected"; ``_Weights`` children as in the JAX
   module, and the forward always goes through
   ``ops/cuda/additive_attention.py::fused_additive_attention``.  Returns
   (weighted encoding, α).
 
-Eval mode only: attention dropout is the identity there.
+In train mode the attention probabilities are dropped at the module's rate
+(``ops/dropout.py``), as the JAX ``_dot_attention`` drops them.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ import torch
 from torch import nn
 
 from visuelle2_tpu_torch.ops.cuda.additive_attention import fused_additive_attention
-from visuelle2_tpu_torch.ops.cuda.gated_mha import fused_gated_mha
+from visuelle2_tpu_torch.ops.cuda.gated_mha import fused_gated_mha, fused_gated_mha_plain
+from visuelle2_tpu_torch.ops.dropout import Dropout, dropout, stochastic
 from visuelle2_tpu_torch.ops.heads import merge_heads, split_heads
 
 GATE_BIAS_INIT = 2.0  # gated_v2's gates start open, as the JAX initializers set them
@@ -52,9 +58,10 @@ class _Weights(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.q_proj = nn.Linear(embed_dim, embed_dim)
         self.k_proj = nn.Linear(embed_dim, embed_dim)
         self.v_proj = nn.Linear(embed_dim, embed_dim)
@@ -68,7 +75,7 @@ class MultiHeadAttention(nn.Module):
         scores = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * (qh.shape[-1] ** -0.5)
         if mask is not None:
             scores = scores + mask
-        probs = torch.softmax(scores, dim=-1)
+        probs = dropout(torch.softmax(scores, dim=-1), self.dropout, self.training)
         out = torch.einsum("bhqk,bhkd->bhqd", probs, vh)
         return self.out_proj(merge_heads(out)), probs.mean(dim=1)
 
@@ -76,14 +83,16 @@ class MultiHeadAttention(nn.Module):
 class _GatedMHABase(nn.Module):
     """gated_v2's gated MHA; ``variant`` "pure" gates the merged heads by
     σ(query·Wg + bg), Wg [D, D]; "head" gates each head's context by
-    σ(q_h·Wg + bg), Wg [d, d].  The gate bias starts at ``GATE_BIAS_INIT``."""
+    σ(q_h·Wg + bg), Wg [d, d].  The gate bias starts at ``GATE_BIAS_INIT``.
+    ``dropout`` is the probability dropout of the train-mode plain path."""
 
     variant = "pure"
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
         D = embed_dim
         self.num_heads = num_heads
+        self.dropout = dropout
         self.q_proj = _Weights(D, D)
         self.k_proj = _Weights(D, D)
         self.v_proj = _Weights(D, D)
@@ -104,8 +113,14 @@ class _GatedMHABase(nn.Module):
         return [query, key, value, m, *w]
 
     def forward(self, query, key, value, *, mask: Optional[torch.Tensor] = None):
-        return fused_gated_mha(*self.kernel_inputs(query, key, value, mask),
-                               num_heads=self.num_heads, variant=self.variant), None
+        args = self.kernel_inputs(query, key, value, mask)
+        if stochastic(self) and self.dropout > 0.0:
+            # The JAX package's train path: the plain formula with its
+            # probability dropout; the kernel has no dropout.
+            return fused_gated_mha_plain(*args, num_heads=self.num_heads,
+                                         variant=self.variant,
+                                         dropout_rate=self.dropout), None
+        return fused_gated_mha(*args, num_heads=self.num_heads, variant=self.variant), None
 
 
 class PureGatedMultiHeadAttention(_GatedMHABase):
@@ -124,16 +139,18 @@ class HeadSpecificGatedAttention(_GatedMHABase):
 
 class GatedCrossAttention(nn.Module):
     """gated_v1 cross-attention: standard MHA (under ``mha``), its output
-    gated by σ(gate_proj(query)).  The residual lives in the decoder layer."""
+    gated by σ(gate_proj(query)), then dropout.  The residual lives in the
+    decoder layer."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
-        self.mha = MultiHeadAttention(embed_dim, num_heads)
+        self.mha = MultiHeadAttention(embed_dim, num_heads, dropout)
         self.gate_proj = nn.Linear(embed_dim, embed_dim)
+        self.drop = Dropout(dropout)
 
     def forward(self, query, key, value, *, mask: Optional[torch.Tensor] = None):
         attn_out, _ = self.mha(query, key, value, mask=mask)
-        return attn_out * torch.sigmoid(self.gate_proj(query)), None
+        return self.drop(attn_out * torch.sigmoid(self.gate_proj(query))), None
 
 
 class AdditiveAttention(nn.Module):

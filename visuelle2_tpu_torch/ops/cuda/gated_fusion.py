@@ -16,6 +16,18 @@ and the splits.  ``fused_gated_residual`` takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises —
 there is no fallback.  ``fused_gated_residual.launches`` counts the kernel
 launches.
+
+Where an input needs a gradient the call runs under a
+``torch.autograd.Function`` (``_GatedResidual``): its forward is the kernel on
+the card (the plain version on the CPU), its backward the formula in torch
+ops on both devices, with g recomputed from the saved inputs:
+
+    dpre = dout·x·g(1−g)
+    dx   = dout·(1+g) (residual) or dout·g (pure), + dpre·Wxᵀ
+    dctx = dpre·Wcᵀ,  dWx = xᵀ·dpre,  dWc = ctxᵀ·dpre,  db = Σ_rows dpre
+
+The Pallas original has no VJP (the JAX package trains on the XLA formula),
+so there is no backward kernel: the backward launches none.
 """
 
 from __future__ import annotations
@@ -91,10 +103,54 @@ def _kernel():
     return lib, fn
 
 
+def gated_residual_backward(dout, x, ctx, wx, wc, b, *, residual: bool = True,
+                            needs=(True,) * 5):
+    """(dx, dctx, dWx, dWc, db) of the gated residual at ``dout``; a gradient
+    whose ``needs`` entry is false is None."""
+    g = torch.sigmoid(x @ wx + ctx @ wc + b)
+    dpre = dout * x * g * (1 - g)
+    dx = dctx = dwx = dwc = db = None
+    if needs[0]:
+        dx = (dout * (1 + g) if residual else dout * g) + dpre @ wx.t()
+    if needs[1]:
+        dctx = dpre @ wc.t()
+    if needs[2]:
+        dwx = x.t() @ dpre
+    if needs[3]:
+        dwc = ctx.t() @ dpre
+    if needs[4]:
+        db = dpre.sum(0)
+    return dx, dctx, dwx, dwc, db
+
+
+class _GatedResidual(torch.autograd.Function):
+    """The kernel (plain on the CPU) forward, the formula backward."""
+
+    @staticmethod
+    def forward(ctx, x, context, wx, wc, b, residual):
+        ctx.residual = residual
+        ctx.save_for_backward(x, context, wx, wc, b)
+        return _forward(x, context, wx, wc, b, residual)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = gated_residual_backward(dout, *ctx.saved_tensors, residual=ctx.residual,
+                                        needs=ctx.needs_input_grad[:5])
+        return (*grads, None)
+
+
 def fused_gated_residual(x, ctx, wx, wc, b, *, residual: bool = True):
     """x [B, D], ctx [B, C], Wx [D, D], Wc [C, D], b [D] ->
-    ``x + x·σ(xWx + ctxWc + b)`` (or the pure gate with residual=False)."""
+    ``x + x·σ(xWx + ctxWc + b)`` (or the pure gate with residual=False);
+    under autograd where an input needs a gradient."""
     _validate(x, ctx, wx, wc, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, ctx, wx, wc, b)):
+        return _GatedResidual.apply(x, ctx, wx, wc, b, residual)
+    return _forward(x, ctx, wx, wc, b, residual)
+
+
+def _forward(x, ctx, wx, wc, b, residual: bool):
+    """The validated call: the plain version for CPU tensors, else the kernel."""
     if x.device.type == "cpu":
         return fused_gated_residual_plain(x, ctx, wx, wc, b, residual=residual)
     if x.device.type != "cuda":

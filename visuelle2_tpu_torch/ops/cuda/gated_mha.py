@@ -19,6 +19,12 @@ layout.  ``fused_gated_mha`` checks its inputs the same way on every device,
 takes the plain version only for tensors on the CPU, and for CUDA tensors
 launches the kernel or raises — there is no fallback.
 ``fused_gated_mha.launches`` counts the kernel launches.
+
+Where an input needs a gradient the call runs under a
+``torch.autograd.Function``: its forward is the kernel on the card (the plain
+version on the CPU), its backward autograd of the plain version recomputed
+from the saved inputs.  The Pallas original has no VJP either: the JAX
+package trains on the XLA formula.  The backward launches no kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import functools
 import torch
 
 from visuelle2_tpu_torch.ops.cuda import _build
+from visuelle2_tpu_torch.ops.dropout import dropout
 from visuelle2_tpu_torch.ops.heads import merge_heads, split_heads
 
 _MAX_SMEM_BYTES = 232448  # 227 KB: what one Hopper block may use
@@ -44,15 +51,18 @@ PLAN_FIELDS = ("ncta", "hpc", "width", "d", "qb", "kd", "kk", "kw", "kx",
 
 
 def fused_gated_mha_plain(query, key, value, mask, wq, bq, wk, bk, wv, bv,
-                          wg, bg, wo, bo, *, num_heads: int, variant: str = "pure"):
-    """The XLA formula of ``_GatedMHABase`` in torch: the CPU path and the
-    kernel's reference."""
+                          wg, bg, wo, bo, *, num_heads: int, variant: str = "pure",
+                          dropout_rate: float = 0.0):
+    """The XLA formula of ``_GatedMHABase`` in torch: the CPU path, the
+    kernel's reference and its backward; ``dropout_rate`` drops the
+    probabilities as the JAX train path does (``ops/dropout.py``)."""
     d = query.shape[-1] // num_heads
     qh = split_heads(query @ wq + bq, num_heads)
     kh = split_heads(key @ wk + bk, num_heads)
     vh = split_heads(value @ wv + bv, num_heads)
     scores = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * (d ** -0.5) + mask
-    ctx = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), vh)
+    probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, dropout_rate > 0.0)
+    ctx = torch.einsum("bhqk,bhkd->bhqd", probs, vh)
     if variant == "head":
         merged = merge_heads(ctx * torch.sigmoid(qh @ wg + bg))
     else:
@@ -238,13 +248,47 @@ def _kernel():
     return lib, fn
 
 
+class _GatedMHA(torch.autograd.Function):
+    """The kernel (plain on the CPU) forward; autograd of the plain version,
+    recomputed from the saved inputs, backward."""
+
+    @staticmethod
+    def forward(ctx, num_heads, variant, *tensors):
+        ctx.num_heads, ctx.variant = num_heads, variant
+        ctx.save_for_backward(*tensors)
+        return _forward(*tensors, num_heads=num_heads, variant=variant)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+            out = fused_gated_mha_plain(*inputs, num_heads=ctx.num_heads,
+                                        variant=ctx.variant)
+            wanted = [t for t, n in zip(inputs, needs) if n]
+            grads = iter(torch.autograd.grad(out, wanted, dout, allow_unused=True))
+        return (None, None, *(next(grads) if n else None for n in needs))
+
+
 def fused_gated_mha(query, key, value, mask, wq, bq, wk, bk, wv, bv, wg, bg, wo, bo,
                     *, num_heads: int, variant: str = "pure"):
     """Gated multi-head attention -> [B, Lq, D]; arguments as in the JAX
-    package's ``fused_gated_mha``."""
+    package's ``fused_gated_mha``.  Under autograd where an input needs a
+    gradient (see the module docstring)."""
     named = dict(query=query, key=key, value=value, mask=mask, wq=wq, bq=bq, wk=wk,
                  bk=bk, wv=wv, bv=bv, wg=wg, bg=bg, wo=wo, bo=bo)
     _validate(named, num_heads=num_heads, variant=variant)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in named.values()):
+        return _GatedMHA.apply(num_heads, variant, *named.values())
+    return _forward(*named.values(), num_heads=num_heads, variant=variant)
+
+
+def _forward(query, key, value, mask, wq, bq, wk, bk, wv, bv, wg, bg, wo, bo, *,
+             num_heads: int, variant: str):
+    """The validated call: the plain version for CPU tensors, else the kernel."""
+    named = dict(query=query, key=key, value=value, mask=mask, wq=wq, bq=bq, wk=wk,
+                 bk=bk, wv=wv, bv=bv, wg=wg, bg=bg, wo=wo, bo=bo)
     if query.device.type == "cpu":
         return fused_gated_mha_plain(*named.values(), num_heads=num_heads,
                                      variant=variant)

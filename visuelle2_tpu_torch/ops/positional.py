@@ -7,6 +7,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from visuelle2_tpu_torch.ops.dropout import Dropout
+
 
 def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
     pe = np.zeros((max_len, d_model), np.float32)
@@ -18,7 +20,7 @@ def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
 
 
 class PositionalEncoding(nn.Module):
-    """x [B, L, D] -> x + pe[:L] (eval mode: no dropout)."""
+    """x [B, L, D] -> dropout(x + pe[:L]), at the JAX module's rate 0.1."""
 
     def __init__(self, d_model: int, max_len: int = 52):
         super().__init__()
@@ -26,6 +28,7 @@ class PositionalEncoding(nn.Module):
         # variable for it either.
         self.register_buffer("pe", torch.from_numpy(sinusoidal_table(max_len, d_model)),
                              persistent=False)
+        self.dropout = Dropout(0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.pe[None, : x.shape[1], :]
+        return self.dropout(x + self.pe[None, : x.shape[1], :])

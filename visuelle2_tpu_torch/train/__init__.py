@@ -1,2 +1,3 @@
-"""Training, counterpart of ``visuelle2_tpu/train/``: so far only the
-target/forecast alignment that scoring shares with it (``loop.py``)."""
+"""Training, counterpart of ``visuelle2_tpu/train/``: the optimizer
+(``optim.py``), the trainer (``loop.py``), checkpoints (``checkpoint.py``)
+and the hyperparameter manifest (``hparams.py``)."""
