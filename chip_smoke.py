@@ -129,6 +129,36 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    and epochs; ``forecast_transformer.main --ckpt_path`` on the best epoch
    prints a WAPE within 1e-4 relative of that epoch's logged
    ``val_wWAPE``;
+16f. train_additive — ``fused_additive_attention`` (the three Demand shapes,
+   B=128, De=Dd=A=512, L = 100, 52, 4, and a ragged one, both ``weight_on``)
+   and ``fused_gru_sequence`` (the trend GRU's shape, B=128, T=52, I=3,
+   H=512, with h0) under their autograd functions on the card (f32, TF32
+   off) against autograd of their plain versions: the outputs and every
+   input's gradient within the forward's tolerance (additive atol 2e-5 +
+   rtol 1e-5, GRU atol 1e-4), the measured maximum printed beside it; one
+   wrapper call a forward and none in the backward, the additive kernels a
+   forward and backward by the profiler (2); each kernel's forward and
+   backward device µs beside plain autograd's;
+16g. train_demand_parity — small CrossAttnRNN Demand, 2-1 and 2-10
+   (``out_len`` 10; tiny backbone at 64², E=A=H=16, two images a batch)
+   trained 3 steps on the card and on the CPU from the same weights and
+   batches, f32, dropout off, unclipped, teacher forcing at ratio 1 (all
+   coins true): train_parity's bounds, and 36, 3 and 30 additive launches a
+   step.  The batches are the first candidates whose CPU run, before the
+   card runs, keeps every ReLU input of the trainable backbone blocks more
+   than 1e-5 from zero at every step (40 candidates at most): nearer zero
+   the card may give it the other sign, and the two devices then take the
+   loss's two one-sided derivatives;
+16h. train_demand — the full-width Demand (bf16 backbone, E=A=H=512,
+   B=128, teacher forcing at ratio 0.5): the train step through ``Trainer``
+   as in 16e, its device ms in the additive kernels, exactly 36 additive
+   launches a step's forward and none in its backward, no host sync in a
+   step, the trend GRU's kernel path (1 launch a step's forward, none in
+   its backward; the step time of both paths in turns), then ``train_dl.main``
+   (``--demand 1 --use_teacher_forcing``) on the split of 16e, whole and cut
+   by a SIGTERM after 3 steps and resumed with ``--resume_from auto``, and
+   ``forecast_dl.main --ckpt_path`` on the best epoch with no dim flags,
+   within 1e-4 relative of that epoch's logged ``val_wWAPE``;
 17. additive_kernel_times — per Demand call (L = 100, 52, 4), the kernel's
    and the plain version's device time per call, the kernel's per launch,
    launches per call and per forward, and the bounds (float32-accurate:
@@ -156,8 +186,9 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    the artifact check, and the epilogue and chain ratios.
 
 Then the ``kernels`` line (seven kernels; ``launches`` counts each row's
-own path, ``launches_forecast_cli`` the forecast CLIs' runs, row 1's
-``launches_train`` a train step's and an eval forward's), the
+own path, ``launches_forecast_cli`` the forecast CLIs' runs, rows 1, 3 and
+4's ``launches_train`` a train step's forward and backward and an eval
+forward's), the
 ``nvidia-smi`` line and,
 last, the ``ok`` line.  Without a CUDA device it exits non-zero before
 printing any result.
@@ -216,6 +247,11 @@ GRU_WIDE = (725, 1024, 1664, 2112)
 DEMAND_ATTN_MAX_SHARE = 0.5
 BF16_GEMM_TOL = "one bf16 ulp (rtol 2^-7) + 2*K*2^-24*(|x|.|w|), the f32 reordering bound"
 HARNESS_TARGET_S = 0.2   # device seconds per harness measurement
+# Calls in a profiled window.  A torch.profiler window loses a count of its
+# kernel records that is the same whatever the window's length and grows as
+# the process ages (none at its start): with the train phases before it, a
+# window of 20 one-kernel calls kept none.
+PROFILE_CALLS = 100
 CROSS_ATTN_DIMS = dict(attention_dim=512, embedding_dim=512, hidden_dim=512)
 # The forecast CLIs' split: 1,000 rows, 4 rows a photo (250 photos at 299²),
 # so 8 batches of 128, the last with 104 real rows.
@@ -242,6 +278,15 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_STATS_TOL = 1e-5, 1e-4, 1e-5
 TRAIN_COS_FLOOR, TRAIN_NORM_RTOL = 0.9999, 1e-3
 TRAIN_LR = 1e-3
 TRAIN_NOISE_SHARE = 1e-8  # of a step's global gradient norm: float noise
+# A ReLU input of a trainable backbone block may take either sign on the card
+# and on the CPU within this of zero (the forward's f32 tolerance between
+# devices); train_demand_parity screens candidate batches, this many at most,
+# for one whose CPU run keeps every such input further from zero.
+KINK_ATOL, KINK_CANDIDATES = 1e-5, 40
+# Images a batch of train_demand_parity (Demand rows, or 2-1/2-10 products of
+# two windows each): at 8 images of 64² the trainable blocks hold 442,368 ReLU
+# inputs, and nearly every step has one within KINK_ATOL of zero.
+PARITY_IMAGES = 2
 # Full width (train): 1,024 train rows (8 steps an epoch), 2 epochs; the
 # SIGTERM lands after this many steps of epoch 0; forecast --ckpt_path scores
 # the best epoch within this of its logged val_wWAPE.
@@ -351,12 +396,13 @@ def _call_times(fns, n_calls):
 
 def _profiled_kernels_us(fn):
     """The profiler's device µs per record of each kernel ``fn`` launches
-    (name -> [records, µs per record]) over 20 calls; a window in which the
-    profiler kept no kernel record is taken again, up to three times."""
+    (name -> [records, µs per record]) over ``PROFILE_CALLS`` calls; a
+    window in which the profiler kept no kernel record is taken again, up
+    to three times."""
     fn()
     for _ in range(3):
         with _profile() as prof:
-            for _ in range(20):
+            for _ in range(PROFILE_CALLS):
                 fn()
             torch.cuda.synchronize()
         records = {e.key[:60]: [e.count, e.self_device_time_total / e.count]
@@ -367,7 +413,7 @@ def _profiled_kernels_us(fn):
     raise RuntimeError("chip_smoke: the profiler kept no kernel record in three windows")
 
 
-def _kernels_per_call(per_kernel, n_calls=20):
+def _kernels_per_call(per_kernel, n_calls=PROFILE_CALLS):
     """Kernel launches a call from ``_profiled_kernels_us``: the kernel names
     seen, or the records a call where the profiler kept more."""
     return max(len(per_kernel), round(sum(n for n, _ in per_kernel.values()) / n_calls))
@@ -504,11 +550,15 @@ def _demand_attention_check(mods, calls, additive, additive_plain):
     return {"max_abs_err": errs, "tolerance_share": shares, "abs_max": absmax}
 
 
-def _stfore_batch(n, image_size, seed, windows=2):
-    """A windowed SO-fore batch: sales lags ``X [n, windows, 2]``."""
+def _stfore_batch(n, image_size, seed, windows=2, horizon=None):
+    """A windowed SO-fore batch: sales lags ``X [n, windows, 2]`` and, with a
+    ``horizon``, targets ``y [n, windows, horizon]``."""
     b = _synthetic_batch(n, image_size, seed)
     del b["ts"]
-    b["X"] = np.random.default_rng(seed).random((n, windows, 2)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    b["X"] = rng.random((n, windows, 2)).astype(np.float32)
+    if horizon:
+        b["y"] = rng.random((n, windows, horizon)).astype(np.float32)
     return b
 
 
@@ -729,7 +779,8 @@ def _forecast_cli_phase(dev, card, zero_counts, counted, forward_rates, forward_
         demand = run("cross_attn_rnn_demand", forecast_dl, dl_argv, "cross_attn_rnn_demand",
                      {"fused_additive_attention": 36})
         host_check("cross_attn_rnn_demand", demand, forecast_dl, dl_argv,
-                   lambda args, vocab, **kw: forecast_dl.make_model(args, vocab, 12, **kw))
+                   lambda args, vocab, **kw: forecast_dl.make_model(args, vocab, 12, demand=True,
+                                                                     **kw))
     _emit({"phase": "forecast_cli", **card, "rows": CLI_ROWS,
            "rows_per_image": CLI_ROWS_PER_IMAGE, "image": IMAGE, "batch": B,
            "dataset_setup_s": setup_s,
@@ -840,37 +891,121 @@ def _noise_elements(grads):
     return mask
 
 
-def _train_parity_phase(dev, card, kernel):
-    """Phase train_parity: a small gated_v4 trained on the card against the
-    same model on the CPU (see the module docstring)."""
-    from visuelle2_tpu_torch.models import VocabSizes, build
+@contextlib.contextmanager
+def _relu_inputs(model):
+    """Collects, in forward order, the ReLU inputs of the backbone's
+    trainable blocks (bn1's and bn2's outputs, and each block's out + sc) on
+    the CPU; a list of tensors per forward, appended to the yielded list."""
+    backbone = next(m for n, m in model.named_modules() if n.endswith("backbone"))
+    seen, hooks = [], []
+    keep = lambda t: seen.append(t.detach().float().cpu())
+    for name in backbone.block_names:
+        block = getattr(backbone, name)
+        if not any(p.requires_grad for p in block.parameters()):
+            continue
+        parts = {}
+        for bn in (block.bn1, block.bn2):
+            hooks.append(bn.register_forward_hook(lambda m, a, o: keep(o)))
+        hooks.append(block.bn3.register_forward_hook(
+            lambda m, a, o, parts=parts: parts.__setitem__("out", o.detach())))
+        if block.ds_bn is not None:
+            hooks.append(block.ds_bn.register_forward_hook(
+                lambda m, a, o, parts=parts: parts.__setitem__("sc", o.detach())))
+        hooks.append(block.register_forward_hook(
+            lambda m, a, o, parts=parts: keep(parts["out"] + parts.get("sc", a[0].detach()))))
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _train_run(model, batches, wrapper, grad_clip, relus=False):
+    """``model`` trained on ``batches`` through ``Trainer``, f32, dropout
+    off: the losses, gradients, final parameters and buffers, the wrapper's
+    launches and, with ``relus``, the ReLU inputs of the trainable backbone
+    blocks at each step."""
     from visuelle2_tpu_torch.ops import dropout
     from visuelle2_tpu_torch.train.loop import TrainConfig, Trainer
+
+    trainer = Trainer(model, TrainConfig(grad_clip=grad_clip, learning_rate=TRAIN_LR))
+    state = trainer.init_state()
+    before, losses, grads, seen = wrapper.launches, [], [], []
+    with dropout.disabled():
+        for b in batches:
+            with _relu_inputs(model) if relus else contextlib.nullcontext([]) as step_relus:
+                state, m = trainer.train_step(
+                    state, {k: torch.from_numpy(v) for k, v in b.items()})
+            seen.append(step_relus)
+            losses.append(float(m["loss"]))
+            grads.append({n: p.grad.detach().cpu().clone()
+                          for n, p in model.named_parameters() if p.grad is not None})
+    return {"losses": losses, "first_grads": grads[0], "grads": grads, "relus": seen,
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+            "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()},
+            "launches": wrapper.launches - before}
+
+
+def _card_and_cpu_models(dev, name, small):
+    """``name`` built from one seed on the card, a loader of CPU copies of
+    it, and its initial parameters."""
+    from visuelle2_tpu_torch.models import build
+
+    on_card = build(name, device=dev, generator=torch.Generator().manual_seed(5), **small)
+    weights = {k: v.detach().cpu().clone() for k, v in on_card.state_dict().items()}
+
+    def cpu_copy():
+        model = build(name, device="cpu", **small)
+        model.load_state_dict(weights)
+        return model
+
+    init = {n: p.detach().clone() for n, p in cpu_copy().named_parameters()}
+    return on_card, cpu_copy, init
+
+
+def _card_vs_cpu_training(dev, name, small, batches, wrapper, per_step, grad_clip):
+    """A small model of ``name`` trained on ``batches`` on the card and on
+    the CPU from the same weights, f32, dropout off: the comparison's
+    numbers, and its checks by name.  ``wrapper`` must launch ``per_step``
+    times a step on the card and never on the CPU."""
+    on_card, cpu_copy, init = _card_and_cpu_models(dev, name, small)
+    runs = {"card": _train_run(on_card, batches, wrapper, grad_clip),
+            "cpu": _train_run(cpu_copy(), batches, wrapper, grad_clip)}
+    return _compare_training(runs, init, len(batches), per_step)
+
+
+def _screened_card_vs_cpu_training(dev, name, small, make_batches, wrapper, per_step):
+    """``_card_vs_cpu_training`` (unclipped) on the first candidate batches
+    (``make_batches(k)``, k = 0, 1, ...) that pass the ReLU screen, decided
+    on the CPU run alone before the card runs: every ReLU input of the
+    trainable backbone blocks at least ``KINK_ATOL`` from zero at every
+    step.  Nearer zero, the card's rounding can give it the other sign: the
+    devices then take the loss's two one-sided derivatives, and Adafactor's
+    early, sign-like updates carry the difference into every later step.
+    The screen's readings (each candidate's least |ReLU input| a step) go
+    into the result."""
+    on_card, cpu_copy, init = _card_and_cpu_models(dev, name, small)
+    readings = []
+    for k in range(KINK_CANDIDATES):
+        batches = make_batches(k)
+        cpu_run = _train_run(cpu_copy(), batches, wrapper, None, relus=True)
+        least = [min(x.abs().min().item() for x in step) for step in cpu_run["relus"]]
+        readings.append(least)
+        if min(least) > KINK_ATOL:
+            break
+    else:
+        raise RuntimeError(f"chip_smoke: {name}: no candidate batches passed the ReLU "
+                           f"screen: {readings}")
+    runs = {"card": _train_run(on_card, batches, wrapper, None), "cpu": cpu_run}
+    result, checks = _compare_training(runs, init, len(batches), per_step)
+    result.update(batch_candidate=k, relu_screen_least_abs_by_candidate=readings)
+    return result, checks
+
+
+def _compare_training(runs, init, n_steps, per_step):
+    """``_card_vs_cpu_training``'s numbers and checks for one pair of runs."""
     from visuelle2_tpu_torch.train.optim import is_frozen
 
-    small = dict(image_arch="tiny", vocab=VocabSizes(5, 6, 5, 126), embedding_dim=16,
-                 hidden_dim=16, output_len=12)
-    on_card = build("gated_v4", device=dev, generator=torch.Generator().manual_seed(5), **small)
-    on_cpu = build("gated_v4", device="cpu", **small)
-    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
-    init = {n: p.detach().cpu().clone() for n, p in on_cpu.named_parameters()}
-    batches = [_synthetic_batch(8, 64, seed=60 + i) for i in range(TRAIN_PARITY_STEPS)]
-    runs = {}
-    for label, model in (("card", on_card), ("cpu", on_cpu)):
-        trainer = Trainer(model, TrainConfig(grad_clip=0.5, learning_rate=TRAIN_LR))
-        state = trainer.init_state()
-        before, losses, grads = kernel.launches, [], []
-        with dropout.disabled():
-            for b in batches:
-                state, m = trainer.train_step(state,
-                                              {k: torch.from_numpy(v) for k, v in b.items()})
-                losses.append(float(m["loss"]))
-                grads.append({n: p.grad.detach().cpu().clone()
-                              for n, p in model.named_parameters() if p.grad is not None})
-        runs[label] = {"losses": losses, "first_grads": grads[0], "grads": grads,
-                       "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
-                       "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()},
-                       "launches": kernel.launches - before}
     card_run, cpu_run = runs["card"], runs["cpu"]
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(card_run["losses"], cpu_run["losses"])]
     grad_share = max(((card_run["first_grads"][n] - g).abs()
@@ -878,9 +1013,17 @@ def _train_parity_phase(dev, card, kernel):
                      for n, g in cpu_run["first_grads"].items())
     grad_err = max((card_run["first_grads"][n] - g).abs().max().item()
                    for n, g in cpu_run["first_grads"].items())
-    stats_share = max(((card_run["buffers"][n] - b).abs()
-                       / (TRAIN_STATS_TOL + TRAIN_STATS_TOL * b.abs())).max().item()
-                      for n, b in cpu_run["buffers"].items() if b.is_floating_point())
+    # The three parameters furthest from their first-step tolerance:
+    # [share, max |error|, max |CPU gradient|].
+    grad_worst = sorted(([((card_run["first_grads"][n] - g).abs()
+                           / (TRAIN_GRAD_TOL + TRAIN_GRAD_TOL * g.abs())).max().item(),
+                          (card_run["first_grads"][n] - g).abs().max().item(),
+                          g.abs().max().item(), n]
+                         for n, g in cpu_run["first_grads"].items()), reverse=True)[:3]
+    stats_share = max([((card_run["buffers"][n] - b).abs()
+                        / (TRAIN_STATS_TOL + TRAIN_STATS_TOL * b.abs())).max().item()
+                       for n, b in cpu_run["buffers"].items() if b.is_floating_point()],
+                      default=0.0)
     worst_cos, worst_norm, frozen_moved, noise, noise_share = 1.0, 0.0, [], {}, 0.0
     quiet_elements = _noise_elements(cpu_run["grads"])
     for n, p0 in init.items():
@@ -893,7 +1036,7 @@ def _train_parity_phase(dev, card, kernel):
         if quiet is not None and quiet.any():
             # Noise steps only: lr · max(rms(p), 1e-3) each, an update of
             # RMS at most 1 over the parameter.
-            bound = (len(batches) * TRAIN_LR * max(1e-3, p0.square().mean().sqrt().item())
+            bound = (n_steps * TRAIN_LR * max(1e-3, p0.square().mean().sqrt().item())
                      * dc.numel() ** 0.5)
             norms = [dc[quiet].norm().item(), dp[quiet].norm().item()]
             noise[n] = [int(quiet.sum()), quiet.numel(), *norms]
@@ -915,23 +1058,175 @@ def _train_parity_phase(dev, card, kernel):
         "BatchNorm statistics": stats_share <= 1.0,
         "frozen stages unmoved": not frozen_moved,
         "noise elements": noise_share <= 1.01,
-        "launches": (card_run["launches"], cpu_run["launches"]) == (2 * len(batches), 0)}
-    _emit({"phase": "train_parity", **card, "model": "gated_v4", "steps": len(batches),
-           "batch": 8, "image": 64, "embedding_dim": 16, "hidden_dim": 16,
-           "learning_rate": TRAIN_LR, "losses": {k: v["losses"] for k, v in runs.items()},
-           "loss_rel_diff": loss_rel, "first_grad_max_abs_err": grad_err,
-           "first_grad_tolerance_share": grad_share, "movement_min_cos": worst_cos,
-           "movement_max_norm_rel_diff": worst_norm, "stats_tolerance_share": stats_share,
-           # parameter: [noise elements, elements, card norm, CPU norm]
-           "noise_elements": noise, "noise_bound_share": noise_share,
-           "launches": {k: v["launches"] for k, v in runs.items()},
-           "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad_atol_rtol": TRAIN_GRAD_TOL,
-                   "cos_floor": TRAIN_COS_FLOOR, "norm_rtol": TRAIN_NORM_RTOL,
-                   "noise_share": TRAIN_NOISE_SHARE,
-                   "stats_atol_rtol": TRAIN_STATS_TOL},
-           "failed": sorted(k for k, ok in checks.items() if not ok)})
+        "launches": (card_run["launches"], cpu_run["launches"]) == (per_step * n_steps, 0)}
+    result = {"steps": n_steps, "losses": {k: v["losses"] for k, v in runs.items()},
+              "loss_rel_diff": loss_rel, "first_grad_max_abs_err": grad_err,
+              "first_grad_tolerance_share": grad_share, "first_grad_worst": grad_worst,
+              "movement_min_cos": worst_cos,
+              "movement_max_norm_rel_diff": worst_norm, "stats_tolerance_share": stats_share,
+              # parameter: [noise elements, elements, card norm, CPU norm]
+              "noise_elements": noise, "noise_bound_share": noise_share,
+              "launches": {k: v["launches"] for k, v in runs.items()},
+              "launches_per_step_on_card": per_step}
+    return result, checks
+
+
+TRAIN_PARITY_TOL = {"loss_rtol": TRAIN_LOSS_RTOL, "grad_atol_rtol": TRAIN_GRAD_TOL,
+                    "cos_floor": TRAIN_COS_FLOOR, "norm_rtol": TRAIN_NORM_RTOL,
+                    "noise_share": TRAIN_NOISE_SHARE, "stats_atol_rtol": TRAIN_STATS_TOL}
+
+
+def _train_parity_phase(dev, card, kernel):
+    """Phase train_parity: a small gated_v4 trained on the card against the
+    same model on the CPU (see the module docstring)."""
+    from visuelle2_tpu_torch.models import VocabSizes
+
+    small = dict(image_arch="tiny", vocab=VocabSizes(5, 6, 5, 126), embedding_dim=16,
+                 hidden_dim=16, output_len=12)
+    batches = [_synthetic_batch(8, 64, seed=60 + i) for i in range(TRAIN_PARITY_STEPS)]
+    result, checks = _card_vs_cpu_training(dev, "gated_v4", small, batches, kernel, 2, 0.5)
+    _emit({"phase": "train_parity", **card, "model": "gated_v4", "batch": 8, "image": 64,
+           "embedding_dim": 16, "hidden_dim": 16, "learning_rate": TRAIN_LR, **result,
+           "tol": TRAIN_PARITY_TOL, "failed": sorted(k for k, ok in checks.items() if not ok)})
     for name, ok in checks.items():
         _require(ok, f"train_parity: {name}")
+
+
+def _train_additive_phase(dev, card, additive, additive_plain, gru_kernel, gru_plain):
+    """Phase train_additive: ``fused_additive_attention`` and
+    ``fused_gru_sequence`` under their autograd functions on the card against
+    autograd of their plain versions (see the module docstring).  Returns
+    each kernel's worst error and its forward-and-backward times."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).requires_grad_()
+
+    errs, launches, checks, kernels_seen = {}, {}, {}, {}
+
+    def compare(key, wrapper, fn, plain_fn, inputs, atol, rtol, names):
+        before = wrapper.launches
+        outs = fn()
+        forward = wrapper.launches - before
+        cots = [torch.randn(o.shape, device=dev, generator=gen) for o in outs]
+        grads = torch.autograd.grad(outs, inputs, cots)
+        torch.cuda.synchronize()
+        backward = wrapper.launches - before - forward
+        outs_p = plain_fn()
+        grads_p = torch.autograd.grad(outs_p, inputs, cots)
+        e = {f"out{i}": (o - w).abs().max().item() for i, (o, w) in enumerate(zip(outs, outs_p))}
+        e.update({f"d_{n}": (g - w).abs().max().item()
+                  for n, g, w in zip(names, grads, grads_p)})
+        errs[key], launches[key] = e, {"forward": forward, "backward": backward}
+        pairs = list(zip(outs, outs_p)) + list(zip(grads, grads_p))
+        checks[f"{key}: within atol {atol} + rtol {rtol}"] = all(
+            bool(((a - b).abs() <= atol + rtol * b.abs()).all()) for a, b in pairs)
+        checks[f"{key}: one call a forward, none in the backward"] = (forward, backward) == (1, 0)
+        checks[f"{key}: autograd function"] = type(outs[0].grad_fn).__name__ in (
+            "_AdditiveAttentionBackward", "_GRUSequenceBackward")
+        return max(e.values())
+
+    worst = {"fused_additive_attention": 0.0, "fused_gru_sequence": 0.0}
+    additive_names = ("enc", "dec", "we", "wd", "v", "vb")
+    demand_inputs = {}
+    for Bk, L, De, Dd, A in ((B, 100, 512, 512, 512), (B, 52, 512, 512, 512),
+                             (B, 4, 512, 512, 512), (37, 13, 48, 40, 24)):
+        ins = [randn(Bk, L, De), randn(Bk, Dd), randn(De, A, scale=De ** -0.5),
+               randn(Dd, A, scale=Dd ** -0.5), randn(A, 1, scale=A ** -0.5), randn(1)]
+        for weight_on in ("inputs", "projected"):
+            key = f"additive {Bk}x{L}x{De}x{Dd}x{A}/{weight_on}"
+            worst["fused_additive_attention"] = max(worst["fused_additive_attention"], compare(
+                key, additive, lambda: additive(*ins, weight_on=weight_on),
+                lambda: additive_plain(*ins, weight_on=weight_on), ins, MHA_ATOL, MHA_RTOL,
+                additive_names))
+            if Bk == B and weight_on == "projected":  # Demand's attentions
+                demand_inputs[f"L={L}"] = ins
+                # The kernels a forward and backward launch, by the profiler.
+                cot = [torch.randn(Bk, L, A, device=dev, generator=gen),
+                       torch.randn(Bk, L, device=dev, generator=gen)]
+                per_kernel = _profiled_kernels_us(lambda: torch.autograd.grad(
+                    additive(*ins, weight_on="projected"), ins, cot))
+                kernels_seen[f"L={L}"] = _kernels_per_call(
+                    {name: v for name, v in per_kernel.items()
+                     if any(k in name for k in ADDITIVE_KERNEL_NAMES)})
+                checks[f"{key}: 2 additive kernels a forward and backward"] = \
+                    kernels_seen[f"L={L}"] == ADDITIVE_MAX_LAUNCHES
+    Bg, Tg, Ig, Hg = B, 52, 3, 512
+    bound = Hg ** -0.5
+    x = torch.rand(Bg, Tg, Ig, device=dev, generator=gen).requires_grad_()
+    w = [((torch.rand(*shape, device=dev, generator=gen) * 2 - 1) * bound).requires_grad_()
+         for shape in ((Ig, 3 * Hg), (Hg, 3 * Hg), (3 * Hg,), (3 * Hg,))]
+    h0 = randn(Bg, Hg, scale=0.5)
+    gru_ins = [x, *w, h0]
+    worst["fused_gru_sequence"] = compare(
+        f"gru {Bg}x{Tg}x{Ig}x{Hg}", gru_kernel, lambda: gru_kernel(*gru_ins),
+        lambda: gru_plain(*gru_ins), gru_ins, GRU_ATOL_FULL, 0.0,
+        ("x", "w_i", "w_h", "b_i", "b_h", "h0"))
+    # Forward and backward device µs: each kernel under its autograd function
+    # against autograd of its plain version, at the Demand shapes.
+    times = {}
+    for label, ins in demand_inputs.items():
+        cot = [torch.randn(t.shape, device=dev, generator=gen)
+               for t in additive_plain(*ins, weight_on="projected")]
+        device_ms, call_ms = _call_times({
+            "kernel": lambda: torch.autograd.grad(additive(*ins, weight_on="projected"), ins,
+                                                  cot),
+            "plain": lambda: torch.autograd.grad(additive_plain(*ins, weight_on="projected"),
+                                                 ins, cot)}, n_calls=20)
+        times[f"additive {label}"] = {
+            **{f"{k}_device_us": 1e3 * v for k, v in device_ms.items()},
+            **{f"{k}_call_us": 1e3 * v for k, v in call_ms.items()}}
+    trend_ins = [x.detach(), *w]  # the trend GRU: no h0, x needs no gradient
+    cot = [torch.randn(t.shape, device=dev, generator=gen) for t in gru_plain(*trend_ins)]
+    device_ms, call_ms = _call_times({
+        "kernel": lambda: torch.autograd.grad(gru_kernel(*trend_ins), w, cot),
+        "plain": lambda: torch.autograd.grad(gru_plain(*trend_ins), w, cot)}, n_calls=5)
+    times["gru trend"] = {**{f"{k}_device_us": 1e3 * v for k, v in device_ms.items()},
+                          **{f"{k}_call_us": 1e3 * v for k, v in call_ms.items()}}
+    _emit({"phase": "train_additive", **card, "max_abs_err": errs, "launches": launches,
+           "additive_kernels_a_forward_and_backward": kernels_seen,
+           "forward_backward_times": times,
+           "additive_atol": MHA_ATOL, "additive_rtol": MHA_RTOL, "gru_atol": GRU_ATOL_FULL,
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"train_additive: {name}: {json.dumps(errs)}")
+    return worst, times
+
+
+def _train_demand_parity_phase(dev, card, additive):
+    """Phase train_demand_parity: small CrossAttnRNN models trained on the
+    card against the same models on the CPU (see the module docstring)."""
+    from visuelle2_tpu_torch.models import VocabSizes
+
+    small = dict(image_arch="tiny", vocab=VocabSizes(5, 6, 5, 126), attention_dim=16,
+                 embedding_dim=16, hidden_dim=16, use_teacher_forcing=True,
+                 teacher_forcing_ratio=1.0)
+    out, failed = {}, []
+    for name, extra, per_step in (
+            ("cross_attn_rnn_demand", {}, 36),
+            ("cross_attn_rnn_21", {"use_teacher_forcing": None, "teacher_forcing_ratio": None},
+             3),
+            ("cross_attn_rnn_210", {"out_len": 10}, 30)):
+        horizon = extra.get("out_len", 1)
+        if name == "cross_attn_rnn_demand":
+            batches = lambda k: [_synthetic_batch(PARITY_IMAGES, 64, seed=70 + 10 * k + i)
+                                 for i in range(TRAIN_PARITY_STEPS)]
+        else:
+            batches = lambda k, horizon=horizon: [
+                _stfore_batch(PARITY_IMAGES, 64, seed=70 + 10 * k + i, horizon=horizon)
+                for i in range(TRAIN_PARITY_STEPS)]
+        dims = {k: v for k, v in {**small, **extra}.items() if v is not None}
+        out[name], checks = _screened_card_vs_cpu_training(dev, name, dims, batches,
+                                                           additive, per_step)
+        out[name]["teacher_forcing_ratio"] = dims.get("teacher_forcing_ratio")
+        failed += [f"{name}: {k}" for k, ok in checks.items() if not ok]
+    _emit({"phase": "train_demand_parity", **card, "image": 64, "image_arch": "tiny",
+           "embedding_dim": 16, "attention_dim": 16, "hidden_dim": 16,
+           "images_a_batch": PARITY_IMAGES, "learning_rate": TRAIN_LR, "grad_clip": None,
+           "relu_screen_atol": KINK_ATOL, "models": out, "tol": TRAIN_PARITY_TOL,
+           "failed": failed})
+    _require(not failed, f"train_demand_parity: {failed}")
+    return {name: r["launches"]["card"] / r["steps"] for name, r in out.items()}
 
 
 def _train_step_times(trainer, state, batches, n_windows):
@@ -950,30 +1245,34 @@ def _train_step_times(trainer, state, batches, n_windows):
     return float(np.median(windows)), windows, torch.cuda.max_memory_allocated()
 
 
-def _train_phase(dev, card, zero_counts, counted):
-    """Phase train: full-width gated_v4 training on the card, timed through
-    ``Trainer`` and run end to end through ``train_transformer.main`` (see
-    the module docstring).  Returns the gated residual's launches a train
-    step and an eval forward."""
-    import signal
-
-    from visuelle2_tpu_torch.cli import forecast_transformer, train_transformer
+def _write_train_split(tmp):
+    """The train phases' synthetic split in ``tmp``: 1,024 train rows and the
+    forecast CLIs' 1,000 test rows, 4 rows a photo, the image store's cache
+    written from seeded numpy pixels (no JPEG).  Returns its path."""
     from visuelle2_tpu_torch.data.images import ImageStore
     from visuelle2_tpu_torch.data.pipeline import load_visuelle2
     from visuelle2_tpu_torch.data.synthetic import make_synthetic_dataset
-    from visuelle2_tpu_torch.models import VocabSizes, build
-    from visuelle2_tpu_torch.train import loop
-    from visuelle2_tpu_torch.train.checkpoint import CheckpointManager
 
-    kernel = counted["fused_gated_residual"]
-    out = {}
-    # The step itself, through Trainer, on eight distinct device batches.
-    model = build("gated_v4", device=dev, generator=torch.Generator().manual_seed(9),
-                  vocab=VocabSizes(5, 6, 5, 126), image_dtype=torch.bfloat16,
-                  image_arch=TRAIN_ARCH)
-    trainer = loop.Trainer(model, loop.TrainConfig(grad_clip=0.5, learning_rate=TRAIN_LR))
-    state = trainer.init_state()
-    batches = [_to_device(_synthetic_batch(B, IMAGE, seed=500 + i), dev) for i in range(8)]
+    path = make_synthetic_dataset(os.path.join(tmp, "d"), num_train=TRAIN_ROWS,
+                                  num_test=CLI_ROWS, seed=0, write_images=False,
+                                  rows_per_image=CLI_ROWS_PER_IMAGE)
+    for split in ("train", "test"):
+        paths = load_visuelle2(path, split, demand=True, output_len=12).image_paths
+        unique, row_to_img = ImageStore.unique_paths(paths)
+        pixels = np.random.default_rng(1 if split == "train" else 0).integers(
+            0, 256, (len(unique), IMAGE, IMAGE, 3), dtype=np.uint8)
+        ImageStore(pixels, row_to_img).write_cache(
+            ImageStore.cache_path(path, split, IMAGE), paths)
+    return path
+
+
+def _measure_trainer(trainer, state, batches, backbone, zero_counts, kernel):
+    """A full-width train step through ``Trainer`` on the distinct device
+    ``batches``: ms a step (the median of ``TRAIN_WINDOWS`` windows), peak
+    memory, ``kernel``'s launches a step and an eval forward, host syncs in
+    a step, the optimizer's device and host ms, device busy ms and idle
+    share, top operators and kernels, and the same step with ``backbone``
+    rematerialized.  Returns the numbers and the profile."""
     zero_counts()
     step_ms, windows, peak = _train_step_times(trainer, state, batches, TRAIN_WINDOWS)
     steps = 2 + TRAIN_WINDOWS * len(batches) + 1
@@ -1013,27 +1312,167 @@ def _train_phase(dev, card, zero_counts, counted):
                         for e in prof.key_averages()
                         if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
                        key=lambda kv: -kv[1])[:10]
-    model.image_encoder.backbone.remat = True
+    backbone.remat = True
     remat_ms, remat_windows, remat_peak = _train_step_times(trainer, state, batches, 1)
-    model.image_encoder.backbone.remat = False
-    n_params = sum(1 for p in model.parameters() if p.requires_grad)
-    out["trainer"] = {
+    backbone.remat = False
+    return {
         "batch": B, "image": IMAGE, "learning_rate": TRAIN_LR, "losses": losses,
         "train_step_ms": step_ms, "train_step_ms_windows": windows,
         "samples_per_s": B / (step_ms / 1e3), "peak_device_bytes": peak,
         "optimizer_step_ms": opt_ms, "optimizer_step_host_ms": 1e3 * float(np.median(host_s)),
-        "trainable_tensors": n_params, "host_syncs_in_a_step": syncs,
-        "device_busy_ms_per_step": busy_ms,
+        "trainable_tensors": sum(1 for p in trainer.model.parameters() if p.requires_grad),
+        "host_syncs_in_a_step": syncs, "device_busy_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
         "device_ms_by_op_per_step": dict(by_op), "top_kernels_ms_launches_per_step": by_kernel,
         "remat": {"train_step_ms": remat_ms, "windows": remat_windows,
                   "peak_device_bytes": remat_peak},
-        "fused_gated_residual_launches": {"per_train_step": launches_per_step,
-                                          "per_eval_forward": launches_per_eval}}
-    checks = {"finite losses (Trainer)": bool(np.isfinite(losses).all()),
-              "no host sync in a train step": not syncs,
-              "2 launches a train step": launches_per_step == 2,
-              "2 launches an eval forward": launches_per_eval == 2}
+        "launches": {"per_train_step": launches_per_step,
+                     "per_eval_forward": launches_per_eval}}, prof
+
+
+def _cli_round_trip(out, tmp, train_main, forecast_main, argv, forecast_argv, name,
+                    per_forward, zero_counts, counted, trace_dir=None):
+    """A train CLI on the train phases' split (``argv`` without
+    ``--ckpt_dir``; its checkpoints under ``tmp``): whole, and cut by a
+    SIGTERM after
+    ``TRAIN_PREEMPT_AFTER`` steps and rerun with ``--resume_from auto``; then
+    the forecast CLI (``forecast_argv`` plus ``--ckpt_path``) on the best
+    epoch.  The counted kernel ``name`` must launch ``per_forward`` times a
+    train step and an eval forward, every other counted kernel never.  Fills ``out`` and
+    returns the checks by name."""
+    import signal
+
+    from visuelle2_tpu_torch.train import loop
+    from visuelle2_tpu_torch.train.checkpoint import CheckpointManager
+
+    kernel = counted[name]
+    steps_per_epoch = TRAIN_ROWS // B
+    evals_per_epoch = -(-CLI_ROWS // B)
+
+    def train(label, ckpt_dir, *extra):
+        zero_counts()
+        text = io.StringIO()
+        t = time.perf_counter()
+        code = 0
+        with contextlib.redirect_stdout(text):
+            try:
+                train_main(argv + ["--ckpt_dir", ckpt_dir, *extra])
+            except SystemExit as e:
+                code = e.code
+        with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        out[label] = {"exit": code, "wall_s": time.perf_counter() - t,
+                      "launches": {n: w.launches for n, w in counted.items()},
+                      "tail": text.getvalue().strip().splitlines()[-2:]}
+        return code, log
+
+    full_dir, cut_dir = os.path.join(tmp, "full"), os.path.join(tmp, "cut")
+    code, full_log = train("uninterrupted", full_dir,
+                           *(["--trace_dir", trace_dir] if trace_dir else []))
+    epochs = [r for r in full_log if "val_wWAPE" in r]
+    ck = CheckpointManager(full_dir, read_only=True)
+    last = torch.load(os.path.join(full_dir, "last", "state.pt"), map_location="cpu",
+                      weights_only=True)
+    want_steps = TRAIN_EPOCHS * steps_per_epoch
+    want_launches = per_forward * (want_steps + TRAIN_EPOCHS * evals_per_epoch)
+    checks = {
+        "uninterrupted: exit 0": code == 0,
+        "uninterrupted: epochs logged": [r["epoch"] for r in epochs] == list(
+            range(TRAIN_EPOCHS)),
+        "uninterrupted: finite losses": all(np.isfinite(r["train_loss"]) for r in epochs),
+        "uninterrupted: steps": last["step"] == want_steps and last["fit_epoch"] ==
+        TRAIN_EPOCHS,
+        "uninterrupted: slots": os.path.isfile(os.path.join(full_dir, "hparams.json"))
+        and ck.best_model_path is not None and os.path.isdir(os.path.join(full_dir, "last")),
+        "uninterrupted: launches": out["uninterrupted"]["launches"] == {
+            n: (want_launches if n == name else 0) for n in counted}}
+    if trace_dir:
+        checks["uninterrupted: one trace of step 2"] = [
+            f.endswith(".json") for f in os.listdir(trace_dir)] == [True]
+
+    # The same command cut by a SIGTERM at a step boundary of epoch 0.
+    original = loop.Trainer.train_step
+    done = []
+
+    def train_step(self, state, batch):
+        result = original(self, state, batch)
+        done.append(1)
+        if len(done) == TRAIN_PREEMPT_AFTER:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return result
+
+    loop.Trainer.train_step = train_step
+    try:
+        code, cut_log = train("preempted", cut_dir)
+    finally:
+        loop.Trainer.train_step = original
+    checks["preempted: exit 143"] = code == 143
+    # metrics.jsonl holds numbers: the flag is logged as 1.0.
+    checks["preempted: saved at the step boundary"] = bool(cut_log[-1].get("preempted")) \
+        and cut_log[-1]["steps_into_epoch"] == TRAIN_PREEMPT_AFTER
+    code, resumed_log = train("resumed", cut_dir, "--resume_from", "auto")
+    resumed_epochs = [r for r in resumed_log if "val_wWAPE" in r]
+    resumed_last = torch.load(os.path.join(cut_dir, "last", "state.pt"),
+                              map_location="cpu", weights_only=True)
+    resumed_steps = want_steps - TRAIN_PREEMPT_AFTER
+    checks.update({
+        "resumed: exit 0": code == 0,
+        "resumed: epochs": [r["epoch"] for r in resumed_epochs] == list(range(TRAIN_EPOCHS)),
+        "resumed: same step count": resumed_last["step"] == want_steps,
+        "resumed: only the remaining steps": out["resumed"]["launches"][name]
+        == per_forward * (resumed_steps + TRAIN_EPOCHS * evals_per_epoch)})
+    out["resumed"]["gap_final_val_wWAPE"] = resumed_epochs[-1]["val_wWAPE"] - \
+        epochs[-1]["val_wWAPE"]
+
+    # The best epoch scored through the forecast CLI's --ckpt_path, no dim flags.
+    best = ck.best_model_path
+    best_epoch = int(os.path.basename(best))
+    logged = next(r["val_wWAPE"] for r in epochs if r["epoch"] == best_epoch)
+    zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        r = forecast_main(forecast_argv + ["--ckpt_path", best])
+    out["forecast"] = {"best_epoch": best_epoch, "wape": r.wape, "logged_val_wWAPE": logged,
+                       "rel_diff": abs(r.wape - logged) / abs(logged),
+                       "forwards": r.forwards, "launches": kernel.launches}
+    checks["forecast --ckpt_path: WAPE"] = out["forecast"]["rel_diff"] <= TRAIN_WAPE_RTOL
+    checks["forecast --ckpt_path: launches"] = kernel.launches == per_forward * r.forwards
+    out["epochs"] = epochs
+    with open(os.path.join(full_dir, "hparams.json")) as f:
+        out["hparams"] = json.load(f)
+    return checks
+
+
+TRAIN_TIMING = ("train_step_ms: CUDA events over 8 distinct device batches after 2 warm-up "
+                "steps, the median of the windows; optimizer_step_ms: CUDA events over 5 "
+                "calls, optimizer_step_host_ms: host clock of one call; device busy: profiler "
+                "over 2 steps")
+
+
+def _train_phase(dev, card, zero_counts, counted):
+    """Phase train: full-width gated_v4 training on the card, timed through
+    ``Trainer`` and run end to end through ``train_transformer.main`` (see
+    the module docstring).  Returns the gated residual's launches a train
+    step and an eval forward."""
+    from visuelle2_tpu_torch.cli import forecast_transformer, train_transformer
+    from visuelle2_tpu_torch.models import VocabSizes, build
+    from visuelle2_tpu_torch.train import loop
+
+    kernel = counted["fused_gated_residual"]
+    out = {}
+    # The step itself, through Trainer, on eight distinct device batches.
+    model = build("gated_v4", device=dev, generator=torch.Generator().manual_seed(9),
+                  vocab=VocabSizes(5, 6, 5, 126), image_dtype=torch.bfloat16,
+                  image_arch=TRAIN_ARCH)
+    trainer = loop.Trainer(model, loop.TrainConfig(grad_clip=0.5, learning_rate=TRAIN_LR))
+    state = trainer.init_state()
+    batches = [_to_device(_synthetic_batch(B, IMAGE, seed=500 + i), dev) for i in range(8)]
+    out["trainer"], prof = _measure_trainer(trainer, state, batches,
+                                            model.image_encoder.backbone, zero_counts, kernel)
+    launches = out["trainer"]["launches"]
+    checks = {"finite losses (Trainer)": bool(np.isfinite(out["trainer"]["losses"]).all()),
+              "no host sync in a train step": not out["trainer"]["host_syncs_in_a_step"],
+              "2 launches a train step": launches["per_train_step"] == 2,
+              "2 launches an eval forward": launches["per_eval_forward"] == 2}
     del model, trainer, state, batches, prof
     torch.cuda.empty_cache()
 
@@ -1043,127 +1482,140 @@ def _train_phase(dev, card, zero_counts, counted):
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         t0 = time.perf_counter()
-        path = make_synthetic_dataset(os.path.join(tmp, "d"), num_train=TRAIN_ROWS,
-                                      num_test=CLI_ROWS, seed=0, write_images=False,
-                                      rows_per_image=CLI_ROWS_PER_IMAGE)
-        for split in ("train", "test"):
-            paths = load_visuelle2(path, split, demand=True, output_len=12).image_paths
-            unique, row_to_img = ImageStore.unique_paths(paths)
-            pixels = np.random.default_rng(1 if split == "train" else 0).integers(
-                0, 256, (len(unique), IMAGE, IMAGE, 3), dtype=np.uint8)
-            ImageStore(pixels, row_to_img).write_cache(
-                ImageStore.cache_path(path, split, IMAGE), paths)
+        path = _write_train_split(tmp)
         out["dataset_setup_s"] = time.perf_counter() - t0
-        steps_per_epoch = TRAIN_ROWS // B
-        evals_per_epoch = -(-CLI_ROWS // B)
         argv = ["--dataset_path", path, "--model", "gated_v4", "--demand", "1",
                 "--device", dev.type, "--image_arch", TRAIN_ARCH,
                 "--bf16_backbone", "--batch_size", str(B), "--image_size", str(IMAGE),
                 "--epochs", str(TRAIN_EPOCHS), "--learning_rate", str(TRAIN_LR)]
-
-        def train(label, ckpt_dir, *extra):
-            zero_counts()
-            text = io.StringIO()
-            t = time.perf_counter()
-            code = 0
-            with contextlib.redirect_stdout(text):
-                try:
-                    train_transformer.main(argv + ["--ckpt_dir", ckpt_dir, *extra])
-                except SystemExit as e:
-                    code = e.code
-            with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
-                log = [json.loads(line) for line in f]
-            out[label] = {"exit": code, "wall_s": time.perf_counter() - t,
-                          "launches": {n: w.launches for n, w in counted.items()},
-                          "tail": text.getvalue().strip().splitlines()[-2:]}
-            return code, log
-
-        full_dir, cut_dir = os.path.join(tmp, "full"), os.path.join(tmp, "cut")
-        trace_dir = os.path.join(tmp, "trace")
-        code, full_log = train("uninterrupted", full_dir, "--trace_dir", trace_dir)
-        epochs = [r for r in full_log if "val_wWAPE" in r]
-        ck = CheckpointManager(full_dir, read_only=True)
-        last = torch.load(os.path.join(full_dir, "last", "state.pt"), map_location="cpu",
-                          weights_only=True)
-        want_steps = TRAIN_EPOCHS * steps_per_epoch
-        want_launches = 2 * (want_steps + TRAIN_EPOCHS * evals_per_epoch)
-        checks.update({
-            "uninterrupted: exit 0": code == 0,
-            "uninterrupted: one trace of step 2": [f.endswith(".json") for f in
-                                                   os.listdir(trace_dir)] == [True],
-            "uninterrupted: epochs logged": [r["epoch"] for r in epochs] == list(
-                range(TRAIN_EPOCHS)),
-            "uninterrupted: finite losses": all(np.isfinite(r["train_loss"]) for r in epochs),
-            "uninterrupted: steps": last["step"] == want_steps and last["fit_epoch"] ==
-            TRAIN_EPOCHS,
-            "uninterrupted: slots": os.path.isfile(os.path.join(full_dir, "hparams.json"))
-            and ck.best_model_path is not None and os.path.isdir(os.path.join(full_dir, "last")),
-            "uninterrupted: launches": out["uninterrupted"]["launches"] == {
-                n: (want_launches if n == "fused_gated_residual" else 0) for n in counted}})
-
-        # The same command cut by a SIGTERM at a step boundary of epoch 0.
-        original = loop.Trainer.train_step
-        done = []
-
-        def train_step(self, state, batch):
-            result = original(self, state, batch)
-            done.append(1)
-            if len(done) == TRAIN_PREEMPT_AFTER:
-                os.kill(os.getpid(), signal.SIGTERM)
-            return result
-
-        loop.Trainer.train_step = train_step
-        try:
-            code, cut_log = train("preempted", cut_dir)
-        finally:
-            loop.Trainer.train_step = original
-        checks["preempted: exit 143"] = code == 143
-        # metrics.jsonl holds numbers: the flag is logged as 1.0.
-        checks["preempted: saved at the step boundary"] = bool(cut_log[-1].get("preempted")) \
-            and cut_log[-1]["steps_into_epoch"] == TRAIN_PREEMPT_AFTER
-        code, resumed_log = train("resumed", cut_dir, "--resume_from", "auto")
-        resumed_epochs = [r for r in resumed_log if "val_wWAPE" in r]
-        resumed_last = torch.load(os.path.join(cut_dir, "last", "state.pt"),
-                                  map_location="cpu", weights_only=True)
-        resumed_steps = want_steps - TRAIN_PREEMPT_AFTER
-        checks.update({
-            "resumed: exit 0": code == 0,
-            "resumed: epochs": [r["epoch"] for r in resumed_epochs] == list(
-                range(TRAIN_EPOCHS)),
-            "resumed: same step count": resumed_last["step"] == want_steps,
-            "resumed: only the remaining steps": out["resumed"]["launches"][
-                "fused_gated_residual"] == 2 * (resumed_steps + TRAIN_EPOCHS * evals_per_epoch)})
-        out["resumed"]["gap_final_val_wWAPE"] = resumed_epochs[-1]["val_wWAPE"] - \
-            epochs[-1]["val_wWAPE"]
-
-        # The best epoch scored through forecast_transformer --ckpt_path.
-        best = ck.best_model_path
-        best_epoch = int(os.path.basename(best))
-        logged = next(r["val_wWAPE"] for r in epochs if r["epoch"] == best_epoch)
-        zero_counts()
-        with contextlib.redirect_stdout(io.StringIO()):
-            r = forecast_transformer.main(["--dataset_path", path, "--ckpt_path", best,
-                                           "--device", dev.type,
-                                           "--bf16_backbone", "--batch_size", str(B),
-                                           "--image_size", str(IMAGE)])
-        out["forecast"] = {"best_epoch": best_epoch, "wape": r.wape, "logged_val_wWAPE": logged,
-                           "rel_diff": abs(r.wape - logged) / abs(logged),
-                           "forwards": r.forwards, "launches": kernel.launches}
-        checks["forecast --ckpt_path: WAPE"] = out["forecast"]["rel_diff"] <= TRAIN_WAPE_RTOL
-        checks["forecast --ckpt_path: launches"] = kernel.launches == 2 * r.forwards
-        out["epochs"] = epochs
+        checks.update(_cli_round_trip(
+            out, tmp, train_transformer.main, forecast_transformer.main, argv,
+            ["--dataset_path", path, "--device", dev.type, "--bf16_backbone",
+             "--batch_size", str(B), "--image_size", str(IMAGE)],
+            "fused_gated_residual", 2, zero_counts, counted,
+            trace_dir=os.path.join(tmp, "trace")))
     _emit({"phase": "train", **card, "model": "gated_v4", "batch": B, "image": IMAGE,
            "embedding_dim": 32, "hidden_dim": 64, "bf16_backbone": True,
            "train_rows": TRAIN_ROWS, "test_rows": CLI_ROWS, "epochs": TRAIN_EPOCHS,
-           "timing": "train_step_ms: CUDA events over 8 distinct device batches after 2 "
-                     "warm-up steps, the median of the windows; optimizer_step_ms: CUDA "
-                     "events over 5 calls, optimizer_step_host_ms: host clock of one call; "
-                     "device busy: profiler over 2 steps",
-           **out, "wape_rtol": TRAIN_WAPE_RTOL,
+           "timing": TRAIN_TIMING, **out, "wape_rtol": TRAIN_WAPE_RTOL,
            "failed": sorted(k for k, ok in checks.items() if not ok)})
     for name, ok in checks.items():
         _require(ok, f"train: {name}")
-    return out["trainer"]["fused_gated_residual_launches"]
+    return launches
+
+
+def _train_demand_phase(dev, card, zero_counts, counted):
+    """Phase train_demand: full-width CrossAttnRNN Demand training on the
+    card, timed through ``Trainer`` and run end to end through
+    ``train_dl.main`` (see the module docstring).  Returns the additive
+    attention's and the GRU kernel path's launches in a train step."""
+    from visuelle2_tpu_torch.cli import forecast_dl, train_dl
+    from visuelle2_tpu_torch.models import VocabSizes, build
+    from visuelle2_tpu_torch.train import loop
+
+    additive = counted["fused_additive_attention"]
+    out = {}
+    # The step itself, through Trainer, on eight distinct device batches,
+    # teacher forcing on at ratio 0.5 (a coin a decode step).
+    model = build("cross_attn_rnn_demand", device=dev, generator=torch.Generator().manual_seed(9),
+                  vocab=VocabSizes(5, 6, 5, 126), image_dtype=torch.bfloat16,
+                  image_arch=TRAIN_ARCH, use_teacher_forcing=True, teacher_forcing_ratio=0.5,
+                  **CROSS_ATTN_DIMS)
+    trainer = loop.Trainer(model, loop.TrainConfig(learning_rate=TRAIN_LR))
+    state = trainer.init_state()
+    batches = [_to_device(_synthetic_batch(B, IMAGE, seed=600 + i), dev) for i in range(8)]
+    out["trainer"], prof = _measure_trainer(trainer, state, batches,
+                                            model.static.image_encoder.backbone, zero_counts,
+                                            additive)
+    out["trainer"]["teacher_forcing_ratio"] = 0.5
+    out["trainer"]["additive_kernels_device_ms_per_step"] = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+        and any(k in e.key for k in ADDITIVE_KERNEL_NAMES)) / 2e3
+
+    def forward_backward(batch):
+        """Each counted kernel's launches in one step's forward and in its
+        backward; the update is not applied."""
+        zero_counts()
+        generator = loop.step_generator(trainer.config.seed + loop.DROPOUT_SEED_OFFSET,
+                                        state.step, dev)
+        loss = trainer._train_loss(batch, generator)
+        forward = {n: w.launches for n, w in counted.items()}
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        state.optimizer.zero_grad(set_to_none=True)
+        return forward, {n: w.launches - forward[n] for n, w in counted.items()}
+
+    step_forward, step_backward = forward_backward(batches[0])
+    # The trend GRU on the kernel path: its launches in a step, and the step
+    # time of both paths in turns.
+    trend_gru = model.static.trend_encoder.gru
+    trend_gru.use_kernel = True
+    gru_forward, gru_backward = forward_backward(batches[2])
+    cycle = itertools.cycle(batches)
+    path_ms = {"step_loop": [], "kernel": []}
+    for use_kernel in (False, True, True, False):
+        trend_gru.use_kernel = use_kernel
+        trainer.train_step(state, next(cycle))
+        path_ms["kernel" if use_kernel else "step_loop"].append(
+            _cuda_ms(lambda: trainer.train_step(state, next(cycle)), 4))
+    trend_gru.use_kernel = False
+    out["trainer"].update(
+        launches_forward=step_forward, launches_backward=step_backward,
+        trend_gru_kernel_path={"train_step_ms_in_turns": path_ms,
+                               "launches_forward": gru_forward,
+                               "launches_backward": gru_backward})
+    launches = out["trainer"]["launches"]
+    others = [n for n in counted if n != "fused_additive_attention"]
+    checks = {"finite losses (Trainer)": bool(np.isfinite(out["trainer"]["losses"]).all()),
+              "no host sync in a train step": not out["trainer"]["host_syncs_in_a_step"],
+              "36 launches a train step": launches["per_train_step"] == 36,
+              "36 launches a step's forward, none in its backward": (
+                  step_forward["fused_additive_attention"],
+                  step_backward["fused_additive_attention"]) == (36, 0),
+              "no other kernel": not any(step_forward[n] or step_backward[n] for n in others),
+              "36 launches an eval forward": launches["per_eval_forward"] == 36,
+              "GRU kernel path: 1 launch a step's forward, none in its backward": (
+                  gru_forward["fused_gru_sequence"], gru_backward["fused_gru_sequence"],
+                  gru_forward["fused_additive_attention"]) == (1, 0, 36)}
+    del model, trainer, state, batches, prof, cycle
+    torch.cuda.empty_cache()
+
+    # End to end: train_dl.main on the train phases' split, twice (once cut
+    # by a SIGTERM and resumed), then forecast_dl on the best epoch.
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        t0 = time.perf_counter()
+        path = _write_train_split(tmp)
+        out["dataset_setup_s"] = time.perf_counter() - t0
+        argv = ["--dataset_path", path, "--demand", "1", "--device", dev.type,
+                "--image_arch", TRAIN_ARCH, "--bf16_backbone", "--batch_size", str(B),
+                "--image_size", str(IMAGE), "--epochs", str(TRAIN_EPOCHS),
+                "--learning_rate", str(TRAIN_LR), "--use_teacher_forcing"]
+        checks.update(_cli_round_trip(
+            out, tmp, train_dl.main, forecast_dl.main, argv,
+            ["--dataset_path", path, "--device", dev.type, "--bf16_backbone",
+             "--batch_size", str(B), "--image_size", str(IMAGE)],
+            "fused_additive_attention", 36, zero_counts, counted))
+    checks["hparams.json"] = out["hparams"]["model"] == "cross_attn_rnn_demand" \
+        and out["hparams"]["attention_dim"] == 512 and out["hparams"]["use_teacher_forcing"] == 1
+    _emit({"phase": "train_demand", **card, "model": "cross_attn_rnn_demand", "batch": B,
+           "image": IMAGE, **CROSS_ATTN_DIMS, "bf16_backbone": True,
+           "train_rows": TRAIN_ROWS, "test_rows": CLI_ROWS, "epochs": TRAIN_EPOCHS,
+           "timing": TRAIN_TIMING + "; the GRU paths: CUDA events over 4 steps each, in turns",
+           **out, "wape_rtol": TRAIN_WAPE_RTOL,
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"train_demand: {name}")
+    return {"fused_additive_attention": {
+                "per_train_step_forward": step_forward["fused_additive_attention"],
+                "per_train_step_backward": step_backward["fused_additive_attention"],
+                "per_eval_forward": launches["per_eval_forward"]},
+            "fused_gru_sequence": {
+                "per_train_step_forward_on_kernel_path": gru_forward["fused_gru_sequence"],
+                "per_train_step_backward": gru_backward["fused_gru_sequence"]}}
 
 
 def main():
@@ -1728,6 +2180,14 @@ def main():
                                            gcd_block_mask)
     _train_parity_phase(dev, card, kernel)
     train_launches = _train_phase(dev, card, zero_counts, counted)
+
+    # 16f.–16h. CrossAttnRNN training: the two kernels under autograd, card vs
+    # CPU, full-width Demand -------------------------------------------------------
+    train_add_err, train_add_times = _train_additive_phase(
+        dev, card, additive, additive_plain, gru_kernel, gru_plain)
+    parity_launches = _train_demand_parity_phase(dev, card, additive)
+    demand_train_launches = _train_demand_phase(dev, card, zero_counts, counted)
+
     per_call = {}
     with torch.inference_mode():
         for mod, args in zip(add_mods, add_calls):
@@ -1770,7 +2230,7 @@ def main():
              "plain": lambda: gru_plain(gru_x, *gru_w),
              "library": lambda: library(gru_x)}, n_calls=50)
         with _profile() as prof:
-            for _ in range(20):
+            for _ in range(PROFILE_CALLS):
                 gru_kernel(gru_x, *gru_w)
             torch.cuda.synchronize()
     recurrence = [e for e in prof.key_averages()
@@ -1924,6 +2384,13 @@ def main():
         "bound_ms": add_mix("bound_us"), "bound_by": add_mix_bound[1],
         "bound_simt_f32_ms": add_mix("bound_simt_f32_us"), "library_ms": None,
         "launches_per_call": max(v["kernel_launches_per_call"] for v in per_call.values()),
+        "launches_train": {**demand_train_launches["fused_additive_attention"],
+                           "per_step_small_width": parity_launches},
+        "train_max_abs_err": train_add_err["fused_additive_attention"],
+        "train_forward_backward_us": {k: v for k, v in train_add_times.items()
+                                      if k.startswith("additive")},
+        "backward": "torch ops (autograd of the plain version, recomputed from the saved "
+                    "inputs); no backward kernel",
         "by_call_us": {k: {f: v[f] for f in ("kernel_device_us", "plain_device_us",
                                              "bound_us", "bound_simt_f32_us")}
                        for k, v in per_call.items()}}, {
@@ -1938,6 +2405,11 @@ def main():
         "ms": gru_device_ms["kernel"], "plain_ms": gru_device_ms["plain"],
         "bound_ms": gru_bound_ms, "bound_by": gru_bound_by,
         "bound_simt_f32_ms": gru_bound_simt_ms, "library_ms": gru_device_ms["library"],
+        "launches_train": demand_train_launches["fused_gru_sequence"],
+        "train_max_abs_err": train_add_err["fused_gru_sequence"],
+        "train_forward_backward_us": train_add_times["gru trend"],
+        "backward": "torch ops (autograd of the step loop, recomputed from the saved "
+                    "inputs); no backward kernel",
         "hidden_range_on_cuda": "H <= {} (resident layout up to {}, streamed above)".format(
             gru_seq.max_hidden(torch.cuda.get_device_properties(dev).multi_processor_count),
             gru_seq.RESIDENT_MAX_HIDDEN),

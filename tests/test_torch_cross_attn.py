@@ -187,15 +187,6 @@ def test_projected_attention_needs_matching_widths():
               embedding_dim=16, hidden_dim=20)
 
 
-def test_models_raise_in_training_mode():
-    for name in ("cross_attn_rnn_demand", "cross_attn_rnn_21", "cross_attn_rnn_210"):
-        model = build(name, device="cpu", **_kw(name))
-        assert not model.training
-        model.train()
-        with pytest.raises(NotImplementedError, match="eval forwards only"):
-            model(_torch_batch(_batch(name, 2, 0, 10)))
-
-
 def test_http_round_trip_of_demand():
     name = "cross_attn_rnn_demand"
     _, variables = _jax_model(name, out_len=12)

@@ -215,8 +215,8 @@ def test_gated_v2_on_card_matches_cpu():
     torch.testing.assert_close(on_card, on_cpu, atol=1e-4, rtol=0)
 
 
-def _batch(n):
-    rng = np.random.default_rng(3)
+def _batch(n, seed=3):
+    rng = np.random.default_rng(seed)
     return {
         "ts": rng.random((n, 12)).astype(np.float32),
         "cat": rng.integers(0, 5, n), "col": rng.integers(0, 6, n),
@@ -468,6 +468,106 @@ def test_cross_attn_rnn_on_card_matches_cpu(name, launches):
         on_cpu = cpu(tb)[0]
     assert taa.fused_additive_attention.launches == before + launches
     torch.testing.assert_close(on_card, on_cpu, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("weight_on", ["inputs", "projected"])
+@pytest.mark.parametrize("shape", [(128, 100, 512, 512, 512), (128, 4, 512, 512, 512),
+                                   (37, 13, 48, 40, 24)])
+def test_additive_attention_under_autograd(weight_on, shape):
+    """The kernel forward (2 launches, one call) and the recomputed plain
+    backward (no launch) against autograd of the plain version."""
+    B, L, De, Dd, A = shape
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    args = [(torch.randn(*s, device="cuda", generator=gen) * sc).requires_grad_()
+            for s, sc in (((B, L, De), 1.0), ((B, Dd), 1.0), ((De, A), De ** -0.5),
+                          ((Dd, A), Dd ** -0.5), ((A, 1), A ** -0.5), ((1,), 1.0))]
+    before = taa.fused_additive_attention.launches
+    out, alpha = taa.fused_additive_attention(*args, weight_on=weight_on)
+    assert type(out.grad_fn).__name__ == "_AdditiveAttentionBackward"
+    cot = [torch.randn(t.shape, device="cuda", generator=gen) for t in (out, alpha)]
+    got = torch.autograd.grad((out, alpha), args, cot)
+    torch.cuda.synchronize()
+    assert taa.fused_additive_attention.launches == before + 1
+    want_out, want_alpha = taa.fused_additive_attention_plain(*args, weight_on=weight_on)
+    want = torch.autograd.grad((want_out, want_alpha), args, cot)
+    torch.testing.assert_close(out, want_out, atol=MHA_ATOL, rtol=MHA_RTOL)
+    torch.testing.assert_close(alpha, want_alpha, atol=MHA_ATOL, rtol=MHA_RTOL)
+    for name, g, w in zip(("enc", "dec", "we", "wd", "v", "vb"), got, want):
+        torch.testing.assert_close(g, w, atol=MHA_ATOL, rtol=MHA_RTOL, msg=name)
+
+
+def test_gru_sequence_under_autograd():
+    """The kernel forward (one launch) and the step loop's recomputed
+    backward (no launch) against autograd of the step loop, at the trend
+    GRU's shape."""
+    x, w_i, w_h, b_i, b_h = _gru_inputs(128, 52, 3, 512)
+    weights = [t.requires_grad_() for t in (w_i, w_h, b_i, b_h)]
+    before = tgs.fused_gru_sequence.launches
+    outs, h_last = tgs.fused_gru_sequence(x, *weights)
+    assert type(outs.grad_fn).__name__ == "_GRUSequenceBackward"
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cot = [torch.randn(t.shape, device="cuda", generator=gen) for t in (outs, h_last)]
+    got = torch.autograd.grad((outs, h_last), weights, cot)
+    torch.cuda.synchronize()
+    assert tgs.fused_gru_sequence.launches == before + 1
+    want = tgs.fused_gru_sequence_plain(x, *weights)
+    want_grads = torch.autograd.grad(want, weights, cot)
+    torch.testing.assert_close(outs, want[0], atol=1e-4, rtol=0)
+    for name, g, w in zip(("w_i", "w_h", "b_i", "b_h"), got, want_grads):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4, msg=name)
+
+
+def test_demand_train_step_on_card_matches_cpu():
+    """A small Demand (teacher forcing at ratio 1) trained one step on the
+    card and on the CPU: the same loss and gradients; 36 additive launches
+    in the forward (image, trend and fused tokens, 12 steps), none in the
+    backward.  The batch, of two images, is the first candidate whose CPU
+    forward keeps every ReLU input of the trainable backbone blocks more
+    than ``KINK_ATOL`` from zero: nearer, the two devices may give it two signs and
+    take the loss's two one-sided derivatives (``chip_smoke.py``
+    train_demand_parity screens its batches so too)."""
+    from chip_smoke import KINK_ATOL, _relu_inputs
+    from visuelle2_tpu_torch.ops import dropout
+    from visuelle2_tpu_torch.train import loop
+    from visuelle2_tpu_torch.train.optim import freeze_backbone
+
+    kw = dict(image_arch="tiny", vocab=VocabSizes(5, 6, 5, 126), attention_dim=16,
+              embedding_dim=16, hidden_dim=16, use_teacher_forcing=True,
+              teacher_forcing_ratio=1.0)
+    model = build("cross_attn_rnn_demand", **kw)
+    cpu = build("cross_attn_rnn_demand", device="cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    freeze_backbone(cpu)
+    stats = {k: v.clone() for k, v in cpu.state_dict().items()}
+    with dropout.disabled():
+        for seed in range(40):
+            tb = {k: torch.from_numpy(v) for k, v in _batch(2, seed=seed).items()}
+            with _relu_inputs(cpu) as seen, torch.no_grad():
+                cpu.train()(tb)
+            if min(x.abs().min().item() for x in seen) > KINK_ATOL:
+                break
+        else:
+            pytest.fail("no candidate batch passed the ReLU screen")
+    cpu.load_state_dict(stats)  # the screen's forwards moved the statistics
+    losses, grads = [], []
+    with dropout.disabled():
+        for m, batch in ((model, {k: v.cuda() for k, v in tb.items()}), (cpu, tb)):
+            trainer = loop.Trainer(m, loop.TrainConfig(learning_rate=1e-3))
+            trainer.init_state()
+            before = taa.fused_additive_attention.launches
+            loss = trainer._train_loss(batch, None)
+            forward = taa.fused_additive_attention.launches - before
+            loss.backward()
+            torch.cuda.synchronize()
+            assert (forward, taa.fused_additive_attention.launches - before) == (
+                (36, 36) if m is model else (0, 0))
+            losses.append(loss.item())
+            grads.append({n: p.grad.cpu() for n, p in m.named_parameters()
+                          if p.grad is not None})
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    assert grads[0].keys() == grads[1].keys()
+    for n, g in grads[1].items():
+        torch.testing.assert_close(grads[0][n], g, atol=1e-4, rtol=1e-4, msg=n)
 
 
 def _probe_inputs(m, k, n, seed=0):

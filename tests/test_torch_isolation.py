@@ -144,6 +144,21 @@ def test_train_cli_needs_cuda_unless_asked(tmp_path):
     assert list(tmp_path.iterdir()) == []
 
 
+def test_train_dl_needs_cuda_unless_asked(tmp_path):
+    """``python -m visuelle2_tpu_torch.cli.train_dl`` raises without a card
+    (``--device`` is ``cuda`` by default) and writes no file."""
+    code = ("import sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "import runpy\n"
+            "sys.argv = ['train_dl', '--demand', '1', '--ckpt_dir', 'ck']\n"
+            "runpy.run_module('visuelle2_tpu_torch.cli.train_dl', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr, out.stderr[-2000:]
+    assert list(tmp_path.iterdir()) == []
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
@@ -165,6 +180,7 @@ def test_importing_the_port_loads_no_jax():
         "import visuelle2_tpu_torch.cli.forecast_transformer, visuelle2_tpu_torch.cli.forecast_dl\n"
         "import visuelle2_tpu_torch.data.synthetic, visuelle2_tpu_torch.eval.forecast\n"
         "import visuelle2_tpu_torch.cli.train_transformer, visuelle2_tpu_torch.ops.dropout\n"
+        "import visuelle2_tpu_torch.cli.train_dl\n"
         "import visuelle2_tpu_torch.train.optim, visuelle2_tpu_torch.train.loop\n"
         "import visuelle2_tpu_torch.train.checkpoint, visuelle2_tpu_torch.train.hparams\n"
         "import visuelle2_tpu_torch.utils.tracing\n"

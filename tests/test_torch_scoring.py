@@ -289,7 +289,7 @@ def test_forecast_dl_horizon(task_mode, new_product, output_len, want):
     (["--quantize", "auto"], "14")])
 def test_flags_not_ported_yet_raise(dataset, cli, flags, match):
     main = forecast_transformer.main if cli == "transformer" else forecast_dl.main
-    if cli == "transformer" and flags[0] == "--ckpt_path":
+    if flags[0] == "--ckpt_path":
         # Ported with training: a checkpoint directory that does not exist
         # is an error of its own.
         with pytest.raises(FileNotFoundError, match="no such checkpoint directory"):

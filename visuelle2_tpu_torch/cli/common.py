@@ -1,7 +1,8 @@
 """Shared CLI plumbing, counterpart of ``visuelle2_tpu/cli/common.py``: the
 common flags, dataset and loader construction, the ``--quantize`` gate, the
-train CLIs' prologue (``prepare_initial_state``: ``--resume_from``) and the
-JSONL metrics log.
+train CLIs' flags (``add_train_args``) and body (``run_training``:
+``--resume_from``, the checkpoints, the manifest, the exit after a SIGTERM)
+and the JSONL metrics log.
 
 The flags are the JAX CLIs' own, plus ``--device`` (default ``cuda``; the
 tests pass ``cpu``): the CLI form of the port's ``device=`` rule.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -33,11 +35,6 @@ from visuelle2_tpu_torch.models.base import VocabSizes
 # non-default value raises, naming where it lands.
 LATER_FLAGS = {
     "export": "ROADMAP Queue 1 item 13 (serving: the artifact file)",
-}
-# forecast_dl's checkpoints come from the CrossAttnRNN trainer.
-DL_LATER_FLAGS = {
-    **LATER_FLAGS,
-    "ckpt_path": "ROADMAP Queue 1 item 8b (CrossAttnRNN training and its checkpoints)",
 }
 
 
@@ -108,9 +105,9 @@ def resolve_cli_device(args) -> torch.device:
     return torch.device(f"cuda:{args.gpu_num}")
 
 
-def check_later_flags(args, later=LATER_FLAGS) -> None:
+def check_later_flags(args) -> None:
     """Raise for a forecast flag whose work is not ported yet."""
-    for flag, where in later.items():
+    for flag, where in LATER_FLAGS.items():
         if getattr(args, flag, ""):
             raise NotImplementedError(f"--{flag} is ported in {where}")
     resolve_quantize(args)
@@ -181,6 +178,61 @@ def score_test_split(args, model, loader, norm_scalar: float):
     print(f"WAPE: {result.wape}")
     print(f"MAE: {result.mae}")
     return result
+
+
+def add_train_args(p: argparse.ArgumentParser):
+    """The train CLIs' own flags; the forecast CLIs that share a train
+    parser accept them and do not read them."""
+    p.add_argument("--resume_from", type=str, default="",
+                   help="checkpoint directory to resume from; 'auto' resumes from "
+                        "--ckpt_dir when it holds a checkpoint")
+    p.add_argument("--autosave_minutes", type=float, default=0.0,
+                   help="save the last slot every so many minutes (0 = off)")
+    p.add_argument("--early_stop_patience", type=int, default=0,
+                   help="stop after N epochs without val_wWAPE improving (0 = off)")
+    p.add_argument("--early_stop_min_delta", type=float, default=0.0)
+    p.add_argument("--learning_rate", type=float, default=0.0,
+                   help="fixed Adafactor learning rate; 0 = the relative-step schedule")
+    return p
+
+
+def run_training(args, model, loaders, hparams: dict, *, norm_scalar: float,
+                 grad_clip: Optional[float], save_top_k: int) -> Optional[str]:
+    """The train CLIs' body: ``Trainer`` with the flags' config,
+    ``CheckpointManager(save_top_k)`` in ``--ckpt_dir``, ``hparams`` as
+    ``hparams.json``, ``metrics.jsonl``, the state ``--resume_from`` gives,
+    then ``fit``.  After a SIGTERM it exits 143 (128 + SIGTERM: a pipeline
+    stops in the grace window); else it returns the best checkpoint's
+    path."""
+    from visuelle2_tpu_torch.train.checkpoint import CheckpointManager
+    from visuelle2_tpu_torch.train.hparams import save_hparams
+    from visuelle2_tpu_torch.train.loop import TrainConfig, Trainer
+
+    trainer = Trainer(model, TrainConfig(
+        epochs=args.epochs, seed=args.seed, grad_clip=grad_clip, norm_scalar=norm_scalar,
+        trace_dir=args.trace_dir or None, accum_steps=args.accum_steps,
+        autosave_minutes=args.autosave_minutes,
+        early_stop_patience=args.early_stop_patience,
+        early_stop_min_delta=args.early_stop_min_delta,
+        learning_rate=args.learning_rate or None))
+    ckpt = CheckpointManager(args.ckpt_dir, save_top_k=save_top_k)
+    save_hparams(args.ckpt_dir, hparams)
+    log = JsonlLogger(os.path.join(args.ckpt_dir, "metrics.jsonl"), wandb_args=args)
+    state, start_epoch, skip_steps = prepare_initial_state(trainer, loaders, args)
+
+    t0 = time.time()
+    try:
+        trainer.fit(loaders["train"], loaders["test"], state=state, checkpointer=ckpt,
+                    log_fn=log, start_epoch=start_epoch, skip_steps=skip_steps)
+    finally:
+        log.close()
+    elapsed = time.time() - t0
+    if trainer.history and trainer.history[-1].get("preempted"):
+        print(f"[Training Preempted] state saved at epoch {trainer.history[-1]['epoch']}; "
+              f"continue with --resume_from {args.ckpt_dir}")
+        raise SystemExit(143)
+    print(f"[Training Completed] Time: {elapsed / 60:.2f} minutes ({elapsed:.2f} seconds)")
+    return ckpt.best_model_path
 
 
 def prepare_initial_state(trainer, loaders, args):

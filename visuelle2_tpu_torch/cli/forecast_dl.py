@@ -5,11 +5,15 @@
         --new_product 1 --bf16_backbone
 
 prints WAPE / MAE / forecasts/s / GFLOPs per sample.  The horizon: Demand
-(``--new_product 1``) forecasts 12 weeks, task 1 (2-10) 10, task 0 (2-1)
-``--output_len``.  Without ``--ckpt_path`` it scores a model drawn from
-``--seed``; ``--ckpt_path`` (CrossAttnRNN training is ROADMAP item 8b),
-``--export`` and a ``--quantize`` mode raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+(``--new_product 1``) forecasts 12 weeks; otherwise ``--output_len``, and
+when that is left at 1, the checkpoint manifest's horizon or, without one,
+10 for task 1 (2-10).  ``--ckpt_path`` (a ``train_dl`` directory or one of
+its epoch directories; the best epoch by default) restores the parameters
+and BatchNorm statistics; the structural flags not passed are filled from
+its ``hparams.json``, a conflicting one is an error, and the dataset is
+checked against the manifest.  Without it the CLI scores a model drawn from
+``--seed``.  ``--export`` and a ``--quantize`` mode raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -19,7 +23,6 @@ import argparse
 import torch
 
 from visuelle2_tpu_torch.cli.common import (
-    DL_LATER_FLAGS,
     add_common_args,
     add_forecast_args,
     build_loaders,
@@ -28,38 +31,75 @@ from visuelle2_tpu_torch.cli.common import (
     score_test_split,
 )
 from visuelle2_tpu_torch.models import build
+from visuelle2_tpu_torch.train.checkpoint import CheckpointManager, resolve_ckpt_path
+from visuelle2_tpu_torch.train.hparams import (
+    DL_STRUCTURAL,
+    apply_ckpt_hparams,
+    check_dataset_compat,
+)
 from visuelle2_tpu_torch.utils.seeding import seed_everything
 
 
-def output_len_of(args) -> int:
+def output_len_of(args, hp=None) -> int:
+    """The horizon: 12 for Demand; ``--output_len`` when set; when left at
+    1, the manifest ``hp``'s, else 10 for task 1 (2-10)."""
     if args.new_product:
         return 12
-    if args.task_mode == 1 and args.output_len == 1:
-        return 10
+    if args.output_len == 1:
+        if hp and "output_len" in hp:
+            return int(hp["output_len"])
+        if args.task_mode == 1:
+            return 10
     return args.output_len
 
 
-def make_model(args, vocab, output_len, *, device=None, generator=None):
-    dims = dict(attention_dim=args.attention_dim, embedding_dim=args.embedding_dim,
-                hidden_dim=args.hidden_dim, vocab=vocab, use_img=bool(args.use_img),
-                image_arch=args.image_arch,
-                image_dtype=torch.bfloat16 if args.bf16_backbone else torch.float32)
-    name = ("cross_attn_rnn_demand" if args.new_product
-            else "cross_attn_rnn_21" if args.task_mode == 0 else "cross_attn_rnn_210")
-    return build(name, device=device, generator=generator, out_len=output_len, **dims)
+def model_name(demand: bool, task_mode: int) -> str:
+    if demand:
+        return "cross_attn_rnn_demand"
+    return "cross_attn_rnn_21" if task_mode == 0 else "cross_attn_rnn_210"
 
 
-def run(args):
+def make_model(args, vocab, output_len, *, demand: bool, device=None, generator=None,
+               training: bool = False):
+    """The CrossAttnRNN model the flags name.  ``training``: the train CLI's
+    model, with ``--remat`` and (2-10, Demand) ``--use_teacher_forcing`` /
+    ``--teacher_forcing_ratio``; a forecast never teacher-forces."""
+    name = model_name(demand, args.task_mode)
+    kw = dict(attention_dim=args.attention_dim, embedding_dim=args.embedding_dim,
+              hidden_dim=args.hidden_dim, vocab=vocab, use_img=bool(args.use_img),
+              image_arch=args.image_arch,
+              image_dtype=torch.bfloat16 if args.bf16_backbone else torch.float32,
+              image_remat=training and bool(args.remat))
+    if name != "cross_attn_rnn_21":
+        kw.update(use_teacher_forcing=training and bool(args.use_teacher_forcing),
+                  teacher_forcing_ratio=args.teacher_forcing_ratio)
+    return build(name, device=device, generator=generator, out_len=output_len, **kw)
+
+
+def run(args, parser=None, argv=None):
+    """Score the test split; ``parser`` and ``argv`` tell ``--ckpt_path``
+    which flags were passed (the command line's when not given)."""
+    hp = None
+    if args.ckpt_path:
+        ckpt_root, ckpt_step = resolve_ckpt_path(args.ckpt_path)
+        # Read-only: raises for a directory that does not exist.
+        ckpt = CheckpointManager(ckpt_root, read_only=True)
+        hp = apply_ckpt_hparams(args, parser or build_parser(), DL_STRUCTURAL, argv)
     print(args)
-    check_later_flags(args, DL_LATER_FLAGS)
+    check_later_flags(args)
     demand = bool(args.new_product)
-    output_len = output_len_of(args)
+    output_len = output_len_of(args, hp)
     device = resolve_cli_device(args)
     loaders, vocab, norm_scalar = build_loaders(
         args, demand=demand, output_len=output_len, splits=("test",),
         dedup_eval_images=bool(args.dedup_images), pin_memory=device.type == "cuda")
-    model = make_model(args, vocab, output_len, device=device,
+    check_dataset_compat(hp, vocab, norm_scalar)
+    model = make_model(args, vocab, output_len, demand=demand, device=device,
                        generator=seed_everything(args.seed))
+    if args.ckpt_path:
+        ckpt.restore_for_eval(model, ckpt_step)
+        print(f"restored {ckpt_root} epoch "
+              f"{ckpt.best_step() if ckpt_step is None else ckpt_step}")
     result = score_test_split(args, model, loaders["test"], norm_scalar)
     print(f"GFLOPS: {result.gflops_per_sample}")
     return result
@@ -88,7 +128,8 @@ def build_parser():
 
 
 def main(argv=None):
-    return run(build_parser().parse_args(argv))
+    parser = build_parser()
+    return run(parser.parse_args(argv), parser, argv)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ import torch
 from visuelle2_tpu_torch.cli.common import (
     add_common_args,
     add_forecast_args,
+    add_train_args,
     build_loaders,
     check_later_flags,
     resolve_cli_device,
@@ -112,12 +113,7 @@ def add_model_args(p, default_model="gtm"):
                    choices=["text", "image", "temporal"])
     p.add_argument("--dedup_images", type=int, default=0,
                    help="encode each unique product photo once per batch")
-    p.add_argument("--resume_from", type=str, default="")
-    p.add_argument("--autosave_minutes", type=float, default=0.0)
-    p.add_argument("--early_stop_patience", type=int, default=0)
-    p.add_argument("--early_stop_min_delta", type=float, default=0.0)
-    p.add_argument("--learning_rate", type=float, default=0.0)
-    return p
+    return add_train_args(p)
 
 
 def build_parser(default_model="gtm"):

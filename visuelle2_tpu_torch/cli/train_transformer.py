@@ -22,20 +22,14 @@ command with ``--resume_from auto`` continues at the next step.
 from __future__ import annotations
 
 import argparse
-import os
-import time
 
 from visuelle2_tpu_torch.cli.common import (
-    JsonlLogger,
     add_common_args,
     build_loaders,
-    prepare_initial_state,
     resolve_cli_device,
+    run_training,
 )
 from visuelle2_tpu_torch.cli.forecast_transformer import add_model_args, make_model
-from visuelle2_tpu_torch.train.checkpoint import CheckpointManager
-from visuelle2_tpu_torch.train.hparams import save_hparams
-from visuelle2_tpu_torch.train.loop import TrainConfig, Trainer
 from visuelle2_tpu_torch.utils.seeding import seed_everything
 
 GRAD_CLIP = 0.5  # the transformer family's global-norm clip
@@ -72,33 +66,10 @@ def run(args):
         dedup_eval_images=True,  # the same outputs; faster per-epoch validation
         pin_memory=device.type == "cuda")
     model = make_model(args, vocab, device=device, generator=seed_everything(args.seed))
-    trainer = Trainer(model, TrainConfig(
-        epochs=args.epochs, seed=args.seed,
-        grad_clip=GRAD_CLIP, norm_scalar=norm_scalar,
-        trace_dir=args.trace_dir or None, accum_steps=args.accum_steps,
-        autosave_minutes=args.autosave_minutes,
-        early_stop_patience=args.early_stop_patience,
-        early_stop_min_delta=args.early_stop_min_delta,
-        learning_rate=args.learning_rate or None))
-    ckpt = CheckpointManager(args.ckpt_dir, save_top_k=SAVE_TOP_K)
-    save_hparams(args.ckpt_dir, hparams_of(args, vocab, norm_scalar))
-    log = JsonlLogger(os.path.join(args.ckpt_dir, "metrics.jsonl"), wandb_args=args)
-    state, start_epoch, skip_steps = prepare_initial_state(trainer, loaders, args)
-
-    t0 = time.time()
-    try:
-        trainer.fit(loaders["train"], loaders["test"], state=state, checkpointer=ckpt,
-                    log_fn=log, start_epoch=start_epoch, skip_steps=skip_steps)
-    finally:
-        log.close()
-    if trainer.history and trainer.history[-1].get("preempted"):
-        # 128 + SIGTERM: the pipeline stops in the grace window.
-        print(f"[Training Preempted] state saved at epoch {trainer.history[-1]['epoch']}; "
-              f"continue with --resume_from {args.ckpt_dir}")
-        raise SystemExit(143)
-    print(f"[Training Completed] Time: {(time.time() - t0) / 60:.2f} minutes")
-    print(f"Best Model Path: {ckpt.best_model_path}")
-    return ckpt.best_model_path
+    best = run_training(args, model, loaders, hparams_of(args, vocab, norm_scalar),
+                        norm_scalar=norm_scalar, grad_clip=GRAD_CLIP, save_top_k=SAVE_TOP_K)
+    print(f"Best Model Path: {best}")
+    return best
 
 
 def build_parser(default_model="gtm"):

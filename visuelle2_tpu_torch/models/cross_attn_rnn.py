@@ -1,6 +1,6 @@
 """CrossAttnRNN family, counterpart of ``visuelle2_tpu/models/cross_attn_rnn.py``:
 SO-fore 2-1 (``CrossAttnRNN21``), SO-fore 2-10 (``CrossAttnRNN210``) and the
-new-product Demand model (``CrossAttnRNNDemand``).  Eval mode only.
+new-product Demand model (``CrossAttnRNNDemand``).
 
 Every decode step runs three additive attentions conditioned on the hidden
 state — over the image patches, the trend steps and the fused tokens — each
@@ -9,9 +9,18 @@ through the CUDA kernel ``fused_additive_attention`` on the card
 decode cell becomes a Python loop over ``out_len`` steps of one ``decoder``
 child module, whose parameters every step shares, as
 ``variable_broadcast="params"`` shares them; the static encodings are
-computed once.  In eval mode scheduled sampling never fires, so each step's
-input is the previous step's prediction.  Teacher forcing and training arrive
-with the training slice: the models raise in training mode.
+computed once.
+
+Train mode follows the JAX modules: dropout at their rates (the trend
+self-attention's probabilities at 0.1), masks drawn from the ``generator``
+handed to ``forward`` (``ops/dropout.py``), BatchNorm batch statistics in the
+backbone, and teacher forcing (scheduled sampling) in 2-10 and Demand when
+``use_teacher_forcing`` is set: one coin per decode step, shared by the
+batch, all ``out_len`` drawn as ``rand(out_len) < teacher_forcing_ratio``
+from that generator before any dropout mask (the JAX ``sampling`` rng), and
+step t's next input is ``where(coin_t, teacher_t, prediction)`` on the
+device, so a step never waits on the host.  In eval mode no coin fires and
+each step's input is the previous step's prediction.
 """
 
 from __future__ import annotations
@@ -26,17 +35,18 @@ from visuelle2_tpu_torch.models.encoders import (
     TemporalFeatureEncoder,
     TSEmbedder,
 )
+from visuelle2_tpu_torch.ops import dropout
 from visuelle2_tpu_torch.ops.attention import AdditiveAttention, MultiHeadAttention
 from visuelle2_tpu_torch.ops.gru import GRU, GRUCellModule
 
 TREND_LEN = 52  # weeks of Google-trend history per product
+TREND_ATTENTION_DROPOUT = 0.1  # the trend self-attention's probabilities
 
 
-def _require_eval(model: nn.Module) -> None:
-    if model.training:
-        raise NotImplementedError(
-            "the port runs CrossAttnRNN eval forwards only; its training and teacher "
-            "forcing arrive with ROADMAP Queue 1 item 8b (call .eval())")
+def teacher_coins(out_len: int, ratio: float, device, generator=None) -> torch.Tensor:
+    """The decode's scheduled-sampling coins: [out_len] bool on ``device``,
+    one a step shared by the batch, true with probability ``ratio``."""
+    return torch.rand(out_len, device=device, generator=generator) < ratio
 
 
 class _StaticEncodings(nn.Module):
@@ -46,10 +56,12 @@ class _StaticEncodings(nn.Module):
 
     def __init__(self, embedding_dim: int, vocab: VocabSizes, num_trends: int = 3,
                  use_img: bool = True, image_arch: str = "resnet101",
-                 image_dtype=torch.float32, faithful_temporal_bug: bool = False):
+                 image_dtype=torch.float32, image_remat: bool = False,
+                 faithful_temporal_bug: bool = False):
         super().__init__()
         E = embedding_dim
-        self.image_encoder = (ImagePatchEncoder(E, arch=image_arch, dtype=image_dtype)
+        self.image_encoder = (ImagePatchEncoder(E, arch=image_arch, dtype=image_dtype,
+                                                remat=image_remat)
                               if use_img else None)
         self.trend_encoder = TSEmbedder(E, input_dim=num_trends)
         self.temp_encoder = TemporalFeatureEncoder(
@@ -128,14 +140,20 @@ class _DecodeCell(nn.Module):
         return hidden, self.decoder_fc(hidden), alphas
 
 
-def _decode(cell: _DecodeCell, hidden, dec_in, statics, out_len: int):
-    """``out_len`` steps, each fed the previous prediction -> (preds [N, T],
-    per-step α dicts)."""
+def _decode(cell: _DecodeCell, hidden, dec_in, statics, out_len: int, teacher=None):
+    """``out_len`` steps -> (preds [N, T], per-step α dicts).  Each step is
+    fed the previous prediction, or with ``teacher = (inputs [N, T], coins
+    [T] bool)`` ``inputs[:, t]`` after a step whose coin is true."""
     preds, alphas = [], []
-    for _ in range(out_len):
-        hidden, dec_in, step_alphas = cell(hidden, dec_in, statics)
-        preds.append(dec_in[:, 0])
+    for t in range(out_len):
+        hidden, pred, step_alphas = cell(hidden, dec_in, statics)
+        preds.append(pred[:, 0])
         alphas.append(step_alphas)
+        if teacher is None:
+            dec_in = pred
+        else:
+            inputs, coins = teacher
+            dec_in = torch.where(coins[t], inputs[:, t, None], pred)
     return torch.stack(preds, dim=1), alphas
 
 
@@ -144,11 +162,14 @@ class _WindowModel(nn.Module):
     trend self-attention, and the sales-history GRU over each window."""
 
     def __init__(self, embedding_dim: int, hidden_dim: int, vocab: VocabSizes,
-                 num_trends: int, use_img: bool, image_arch: str, image_dtype):
+                 num_trends: int, use_img: bool, image_arch: str, image_dtype,
+                 image_remat: bool):
         super().__init__()
         self.static = _StaticEncodings(embedding_dim, vocab, num_trends, use_img,
-                                       image_arch=image_arch, image_dtype=image_dtype)
-        self.ts_self_attention = MultiHeadAttention(embedding_dim, 4)
+                                       image_arch=image_arch, image_dtype=image_dtype,
+                                       image_remat=image_remat)
+        self.ts_self_attention = MultiHeadAttention(embedding_dim, 4,
+                                                    dropout=TREND_ATTENTION_DROPOUT)
         self.sales_encoder_gru = GRU(1, hidden_dim)
 
     def _encode(self, batch):
@@ -165,42 +186,62 @@ class _WindowModel(nn.Module):
 class CrossAttnRNN21(_WindowModel):
     """SO-fore 2-1: all-modality encode, one fusion step under the sales
     GRU's state, linear head -> (pred [B, W, 1], None).  ``out_len`` is
-    accepted and, as by the JAX module, not read: the model predicts one step."""
+    accepted and, as by the JAX module, not read: the model predicts one step
+    and takes no teacher forcing."""
 
     def __init__(self, attention_dim: int = 512, embedding_dim: int = 512,
                  hidden_dim: int = 512, vocab: VocabSizes = VocabSizes(5, 6, 5),
                  num_trends: int = 3, use_img: bool = True, out_len: int = 1,
-                 image_arch: str = "resnet101", image_dtype=torch.float32):
+                 image_arch: str = "resnet101", image_dtype=torch.float32,
+                 image_remat: bool = False):
         super().__init__(embedding_dim, hidden_dim, vocab, num_trends, use_img, image_arch,
-                         image_dtype)
+                         image_dtype, image_remat)
         self.fusion = _FusionAttention(embedding_dim, attention_dim, hidden_dim,
                                        use_img=use_img)
         self.decoder_fc = nn.Linear(embedding_dim, 1)
 
-    def forward(self, batch):
-        _require_eval(self)
-        _, B, W, statics, hidden = self._encode(batch)
-        context, _ = self.fusion(*statics, hidden)
-        return self.decoder_fc(context).reshape(B, W, 1), None
+    def forward(self, batch, *, generator=None):
+        """-> (pred [B, W, 1], None); in train mode the dropout masks are
+        drawn from ``generator`` (torch's default one if None)."""
+        with dropout.use_generator(generator):
+            _, B, W, statics, hidden = self._encode(batch)
+            context, _ = self.fusion(*statics, hidden)
+            return self.decoder_fc(context).reshape(B, W, 1), None
 
 
 class CrossAttnRNN210(_WindowModel):
     """SO-fore 2-10: an ``out_len``-step decode from the sales GRU's state and
-    the last observed sale -> (preds [B·W, out_len], None)."""
+    the last observed sale -> (preds [B·W, out_len], None).  Teacher forcing
+    (train mode, ``use_teacher_forcing``, a batch with ``y``) feeds the
+    target ``y`` [B, W, out_len]."""
 
     def __init__(self, attention_dim: int = 512, embedding_dim: int = 512,
                  hidden_dim: int = 512, vocab: VocabSizes = VocabSizes(5, 6, 5),
                  num_trends: int = 3, use_img: bool = True, out_len: int = 10,
-                 image_arch: str = "resnet101", image_dtype=torch.float32):
+                 use_teacher_forcing: bool = True, teacher_forcing_ratio: float = 0.5,
+                 image_arch: str = "resnet101", image_dtype=torch.float32,
+                 image_remat: bool = False):
         super().__init__(embedding_dim, hidden_dim, vocab, num_trends, use_img, image_arch,
-                         image_dtype)
+                         image_dtype, image_remat)
         self.out_len = out_len
+        self.use_teacher_forcing = use_teacher_forcing
+        self.teacher_forcing_ratio = teacher_forcing_ratio
         self.decoder = _DecodeCell(embedding_dim, attention_dim, hidden_dim, use_img=use_img)
 
-    def forward(self, batch):
-        _require_eval(self)
-        X, _, _, statics, hidden = self._encode(batch)
-        preds, _ = _decode(self.decoder, hidden, X[:, -1, :], statics, self.out_len)
+    def forward(self, batch, *, generator=None):
+        """-> (preds [B·W, out_len], None); in train mode the coins and the
+        dropout masks are drawn from ``generator`` (torch's default one if
+        None)."""
+        teacher = None
+        if self.use_teacher_forcing and self.training and "y" in batch:
+            y = batch["y"]
+            teacher = (y.reshape(-1, self.out_len),
+                       teacher_coins(self.out_len, self.teacher_forcing_ratio, y.device,
+                                     generator))
+        with dropout.use_generator(generator):
+            X, _, _, statics, hidden = self._encode(batch)
+            preds, _ = _decode(self.decoder, hidden, X[:, -1, :], statics, self.out_len,
+                               teacher)
         return preds, None
 
 
@@ -208,36 +249,49 @@ class CrossAttnRNNDemand(nn.Module):
     """Demand (new product): an ``out_len``-step decode from zero state and
     zero input, attention on the projected encodings, with the
     ``use_img``/``use_att``/``use_trends`` ablations -> (forecast [N, T, 1],
-    α {"img", "trend", "multimodal"}, each [T, N, L])."""
+    α {"img", "trend", "multimodal"}, each [T, N, L]).  Teacher forcing
+    (train mode, ``use_teacher_forcing``) feeds the series ``ts`` itself."""
 
     def __init__(self, attention_dim: int = 512, embedding_dim: int = 512,
                  hidden_dim: int = 512, vocab: VocabSizes = VocabSizes(5, 6, 5),
                  num_trends: int = 3, use_img: bool = True, use_att: bool = True,
                  use_trends: bool = True, out_len: int = 12,
+                 use_teacher_forcing: bool = False, teacher_forcing_ratio: float = 0.5,
                  image_arch: str = "resnet101", image_dtype=torch.float32,
-                 faithful_temporal_bug: bool = False):
+                 image_remat: bool = False, faithful_temporal_bug: bool = False):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.out_len = out_len
+        self.use_teacher_forcing = use_teacher_forcing
+        self.teacher_forcing_ratio = teacher_forcing_ratio
         self.static = _StaticEncodings(embedding_dim, vocab, num_trends, use_img,
                                        image_arch=image_arch, image_dtype=image_dtype,
+                                       image_remat=image_remat,
                                        faithful_temporal_bug=faithful_temporal_bug)
-        self.ts_self_attention = (MultiHeadAttention(embedding_dim, 4)
-                                  if use_trends else None)
+        self.ts_self_attention = (
+            MultiHeadAttention(embedding_dim, 4, dropout=TREND_ATTENTION_DROPOUT)
+            if use_trends else None)
         self.decoder = _DecodeCell(embedding_dim, attention_dim, hidden_dim,
                                    weight_on="projected", use_img=use_img,
                                    use_att=use_att, use_trends=use_trends)
 
-    def forward(self, batch):
-        _require_eval(self)
+    def forward(self, batch, *, generator=None):
+        """-> (forecast, α); in train mode the coins and the dropout masks are
+        drawn from ``generator`` (torch's default one if None)."""
         ts = batch["ts"]
         N = ts.shape[0]
-        img, trend, temporal, attributes = self.static(batch)
-        if self.ts_self_attention is not None:
-            trend, _ = self.ts_self_attention(trend, trend, trend)
-        hidden = ts.new_zeros(N, self.hidden_dim)
-        dec_in = ts.new_zeros(N, 1)
-        preds, alphas = _decode(self.decoder, hidden, dec_in,
-                                (img, trend, temporal, attributes), self.out_len)
+        teacher = None
+        if self.use_teacher_forcing and self.training:
+            teacher = (ts, teacher_coins(self.out_len, self.teacher_forcing_ratio, ts.device,
+                                         generator))
+        with dropout.use_generator(generator):
+            img, trend, temporal, attributes = self.static(batch)
+            if self.ts_self_attention is not None:
+                trend, _ = self.ts_self_attention(trend, trend, trend)
+            hidden = ts.new_zeros(N, self.hidden_dim)
+            dec_in = ts.new_zeros(N, 1)
+            preds, alphas = _decode(self.decoder, hidden, dec_in,
+                                    (img, trend, temporal, attributes), self.out_len,
+                                    teacher)
         stacked = {k: torch.stack([a[k] for a in alphas]) for k in alphas[0]}
         return preds[..., None], stacked

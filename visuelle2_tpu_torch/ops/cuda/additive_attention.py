@@ -20,6 +20,17 @@ scaling.  ``launch_plan`` picks the GEMM's tile width from the shape.
 takes the plain version only for tensors on the CPU, and for CUDA tensors
 launches the kernel or raises — there is no fallback.
 ``fused_additive_attention.launches`` counts the calls that launched it.
+
+Under autograd (grad enabled and an input that needs a gradient) the call
+goes through ``_AdditiveAttention``: the same forward, the kernel on the
+card, and as its backward autograd of the plain version recomputed from the
+saved inputs, as the JAX package differentiates its XLA formula (its Pallas
+kernel has no VJP).  Only the six inputs are saved, tensors the decode holds
+anyway (the encodings every step shares, the step's hidden state), so a
+call keeps no [B, L, A] activation alive between forward and backward; the
+backward recomputes h = enc·We and tanh(h + s) — for "projected", where
+out = α ⊙ h, h as well — at the cost of one more forward's products.  The
+backward launches no kernel of this module.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import math
 import torch
 
 from visuelle2_tpu_torch.ops.cuda import _build
+from visuelle2_tpu_torch.ops.cuda.recompute import recompute_backward
 
 _MAX_SMEM_BYTES = 232448  # 227 KB: what one Hopper block may use
 WEIGHT_ON = ("inputs", "projected")
@@ -119,11 +131,23 @@ def _kernel():
     return lib, fn
 
 
+_AdditiveAttention = recompute_backward(
+    "_AdditiveAttention", lambda weight_on, *t: _forward(*t, weight_on=weight_on),
+    lambda weight_on, *t: fused_additive_attention_plain(*t, weight_on=weight_on), n_static=1)
+
+
 def fused_additive_attention(enc, dec, we, wd, v, vb, *, weight_on: str = "inputs"):
     """Additive attention -> (out [B, L, Dw], α [B, L]); arguments as in the
-    JAX package's ``fused_additive_attention``."""
+    JAX package's ``fused_additive_attention``.  Under autograd where an
+    input needs a gradient (see the module docstring)."""
     named = dict(enc=enc, dec=dec, we=we, wd=wd, v=v, vb=vb)
     _validate(named, weight_on=weight_on)
+    return _AdditiveAttention.run(weight_on, *named.values())
+
+
+def _forward(enc, dec, we, wd, v, vb, *, weight_on: str):
+    """The validated call: the plain version for CPU tensors, else the kernel."""
+    named = dict(enc=enc, dec=dec, we=we, wd=wd, v=v, vb=vb)
     if enc.device.type == "cpu":
         return fused_additive_attention_plain(*named.values(), weight_on=weight_on)
     if enc.device.type != "cuda":

@@ -35,6 +35,7 @@ import functools
 import torch
 
 from visuelle2_tpu_torch.ops.cuda import _build
+from visuelle2_tpu_torch.ops.cuda.recompute import recompute_backward
 from visuelle2_tpu_torch.ops.dropout import dropout
 from visuelle2_tpu_torch.ops.heads import merge_heads, split_heads
 
@@ -248,27 +249,11 @@ def _kernel():
     return lib, fn
 
 
-class _GatedMHA(torch.autograd.Function):
-    """The kernel (plain on the CPU) forward; autograd of the plain version,
-    recomputed from the saved inputs, backward."""
-
-    @staticmethod
-    def forward(ctx, num_heads, variant, *tensors):
-        ctx.num_heads, ctx.variant = num_heads, variant
-        ctx.save_for_backward(*tensors)
-        return _forward(*tensors, num_heads=num_heads, variant=variant)
-
-    @staticmethod
-    def backward(ctx, dout):
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
-            out = fused_gated_mha_plain(*inputs, num_heads=ctx.num_heads,
-                                        variant=ctx.variant)
-            wanted = [t for t, n in zip(inputs, needs) if n]
-            grads = iter(torch.autograd.grad(out, wanted, dout, allow_unused=True))
-        return (None, None, *(next(grads) if n else None for n in needs))
+_GatedMHA = recompute_backward(
+    "_GatedMHA",
+    lambda num_heads, variant, *t: _forward(*t, num_heads=num_heads, variant=variant),
+    lambda num_heads, variant, *t: fused_gated_mha_plain(*t, num_heads=num_heads,
+                                                         variant=variant), n_static=2)
 
 
 def fused_gated_mha(query, key, value, mask, wq, bq, wk, bk, wv, bv, wg, bg, wo, bo,
@@ -279,9 +264,7 @@ def fused_gated_mha(query, key, value, mask, wq, bq, wk, bk, wv, bv, wg, bg, wo,
     named = dict(query=query, key=key, value=value, mask=mask, wq=wq, bq=bq, wk=wk,
                  bk=bk, wv=wv, bv=bv, wg=wg, bg=bg, wo=wo, bo=bo)
     _validate(named, num_heads=num_heads, variant=variant)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in named.values()):
-        return _GatedMHA.apply(num_heads, variant, *named.values())
-    return _forward(*named.values(), num_heads=num_heads, variant=variant)
+    return _GatedMHA.run(num_heads, variant, *named.values())
 
 
 def _forward(query, key, value, mask, wq, bq, wk, bk, wv, bv, wg, bg, wo, bo, *,

@@ -22,6 +22,14 @@ tensors on the CPU; off the CPU it also holds H to the kernel's limit, and
 for CUDA tensors it launches the kernel or raises — there is no fallback.
 ``fused_gru_sequence.launches`` counts the calls that launched the kernel
 (one launch each, after the input GEMM).
+
+Under autograd (grad enabled and an input that needs a gradient) the call
+goes through ``_GRUSequence``: the same forward, and as its backward autograd
+of the step loop recomputed from the saved inputs (x, the weights, h0), as
+the JAX package differentiates its ``lax.scan`` (its Pallas kernel has no
+VJP).  No per-step activation is kept between forward and backward; the
+backward reruns the T steps in torch ops and launches no kernel of this
+module.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import functools
 import torch
 
 from visuelle2_tpu_torch.ops.cuda import _build
+from visuelle2_tpu_torch.ops.cuda.recompute import recompute_backward
 from visuelle2_tpu_torch.ops.gru import gru_sequence
 
 _MAX_SMEM_BYTES = 232448  # 227 KB: what one Hopper block may use
@@ -120,13 +129,23 @@ def _kernel():
     return lib, fn
 
 
+_GRUSequence = recompute_backward("_GRUSequence", lambda *t: _forward(*t),
+                                  lambda *t: gru_sequence(*t))
+
+
 def fused_gru_sequence(x, w_i, w_h, b_i, b_h, h0=None):
     """GRU over x [B, T, I] -> (outs [B, T, H], h_T [B, H]); arguments as in
-    the JAX package's ``fused_gru_sequence``."""
+    the JAX package's ``fused_gru_sequence``.  Under autograd where an input
+    needs a gradient (see the module docstring)."""
     named = dict(x=x, w_i=w_i, w_h=w_h, b_i=b_i, b_h=b_h)
     if h0 is not None:
         named["h0"] = h0
     _validate(named)
+    return _GRUSequence.run(*named.values())
+
+
+def _forward(x, w_i, w_h, b_i, b_h, h0=None):
+    """The validated call: the step loop for CPU tensors, else the kernel."""
     if x.device.type == "cpu":
         return gru_sequence(x, w_i, w_h, b_i, b_h, h0)
     B, T, I = x.shape

@@ -25,11 +25,21 @@ from visuelle2_tpu_torch.train.checkpoint import resolve_ckpt_path
 
 HPARAMS_FILE = "hparams.json"
 
-# Forecast-CLI dest -> manifest key (the CrossAttnRNN family's arrives with
-# its trainer, ROADMAP item 8b).  Only STRUCTURAL knobs are
+# Forecast-CLI dest -> manifest key, per family.  Only STRUCTURAL knobs are
 # filled/checked — anything that changes the parameter tree or the forward
 # semantics.  Runtime knobs (batch_size, dataset_path, dedup_images, ...)
 # stay with the caller.
+DL_STRUCTURAL = {
+    "new_product": "demand",  # forecast_dl spells the train CLI's --demand
+    "task_mode": "task_mode",
+    "output_len": "output_len",
+    "embedding_dim": "embedding_dim",
+    "attention_dim": "attention_dim",
+    "hidden_dim": "hidden_dim",
+    "use_img": "use_img",
+    "image_arch": "image_arch",
+}
+
 TRANSFORMER_STRUCTURAL = {
     "model": "model",
     "demand": "demand",
