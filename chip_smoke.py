@@ -185,10 +185,52 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    beside the ``aten::cudnn_convolution`` ms of phase 6's gated_v4 forward,
    the artifact check, and the epilogue and chain ratios.
 
+The phases of the last two registry models and of the reference's task
+list, each run at the place its number gives among those above:
+
+11b. legacy_inception — the port's InceptionV3 backbone (seeded weights at
+   the registry's initializers) at 299², B=128, in f32 and bf16 (forward ms,
+   peak memory; finite [128, 2048, 8, 8]), the backbone at B=2 on the card
+   against the CPU in f32 (atol 1e-4), then ``LegacyImageEncoder`` (E=512)
+   -> [128, 64, 512] and ``LegacyAdditiveAttention`` through
+   ``fused_additive_attention`` at B=128, L=64, De=Dd=A=512: one wrapper call,
+   within atol 2e-5 + rtol 1e-5 of the plain version on those inputs, at
+   most 2 kernels a call; the call's device µs beside plain's and the bound;
+16a. forward_gtm_v1 — the full-width gtm_v1 (frozen ResNet-50 at 299²,
+   E=32, H=64, 4 heads, 1 layer, 12 weeks, B=128, the hashed featurizer's
+   768-wide text features, seeded weights) through ``make_forecaster``,
+   non-AR and AR, with an f32 and a bf16 tower: finite [128, 12] forecasts,
+   no model kernel launched; the non-AR forward's times as in 6; a small
+   gtm_v1 (non-AR and AR) on the card within 1e-4 of the CPU in f32;
+16b'. stats — ``forecast_stat.main`` on the forecast CLIs' 1,000-row split
+   taken as an stfore split (2-week windows; photos cached at 32², which
+   the baselines do not read), naive, SES and Holt with teacher forcing on
+   and off: the CLI's forecasts' WAPE and MAE within 1e-5 relative of a
+   float64 numpy recomputation of the closed forms over the same windows,
+   the printed line their reference rounding, no model kernel launched, the
+   pass's host seconds; Holt at T > 2 on the series
+   ``tests/test_stats_and_metrics.py`` pins: the card's fit (forecasts,
+   level, trend and grid picks) equal to the CPU's bit for bit, and the
+   recorded constants within rtol 1e-4;
+16i. train_gtm_v1 — the full-width gtm_v1 (bf16 tower) trained through
+   ``Trainer`` as in 16e (no ``--remat`` effect: the tower has no backward),
+   the tower's parameters and BatchNorm statistics bit-unchanged, no host
+   sync in a step, no kernel launched; then ``train_transformer.main --model
+   gtm_v1 --demand 1 --image_arch resnet50`` on the split of 16e for 2
+   epochs (``hparams.json`` says ``text_fingerprint: hashed-crc32-v1``) and
+   ``forecast_transformer.main --ckpt_path`` on the best epoch within 1e-4
+   relative of its logged ``val_wWAPE``;
+22. run_all — ``run_all.main`` on a small split under ``build/`` (64 train
+   and 32 test rows, photos cached at 32², tiny backbone, 1 epoch, B=16):
+   six results printed, each forecast from the checkpoint its training
+   returned (spies on ``train_dl.run`` and ``forecast_dl.run``), each stat
+   result equal to ``forecast_stat`` run alone.
+
 Then the ``kernels`` line (seven kernels; ``launches`` counts each row's
-own path, ``launches_forecast_cli`` the forecast CLIs' runs, rows 1, 3 and
-4's ``launches_train`` a train step's forward and backward and an eval
-forward's), the
+own path, ``launches_forecast_cli`` the forecast CLIs' runs,
+``launches_run_all`` run_all's, rows 1, 3 and 4's ``launches_train`` a
+train step's forward and backward and an eval forward's, row 3's
+``launches_legacy`` the legacy attention's), the
 ``nvidia-smi`` line and,
 last, the ``ok`` line.  Without a CUDA device it exits non-zero before
 printing any result.
@@ -294,6 +336,24 @@ TRAIN_ROWS, TRAIN_EPOCHS, TRAIN_PREEMPT_AFTER = 1024, 2, 3
 TRAIN_WINDOWS = 3
 TRAIN_ARCH = "resnet101"
 TRAIN_WAPE_RTOL = 1e-4
+# The statistical baselines (stats): the forecast CLIs' 1,000-row split as an
+# stfore split (2-week windows); the baselines read no pixel, so its photos
+# are cached at 32².  WAPE and MAE within this of a float64 recomputation;
+# Holt at T > 2 on the series tests/test_stats_and_metrics.py pins.
+STATS_IMAGE = 32
+STATS_RTOL = 1e-5
+HOLT_PINNED = {(3., 5., 4., 7., 8., 6., 9., 11.): (11.071446, 12.059547, 13.047647),
+               (10., 8., 9., 5., 6., 3.): (2.33339, 1.047698, -0.237995)}
+HOLT_PINNED_RTOL = 1e-4
+# gtm_v1 at the registry's dims: a frozen ResNet-50 tower at 299², 768-wide
+# hashed text features.
+GTM_V1_DIMS = dict(embedding_dim=32, hidden_dim=64, num_heads=4, num_layers=1,
+                   output_len=12, image_arch="resnet50")
+# The legacy InceptionV3 encoder (E = 512) and its additive attention over
+# 64 patch tokens.
+LEGACY_DIM = 512
+# run_all on a small split: tiny backbone at 32², 1 epoch, batches of 16.
+RUN_ALL_ROWS, RUN_ALL_IMAGE, RUN_ALL_BATCH = (64, 32), 32, 16
 
 
 def _require(cond, msg):
@@ -433,19 +493,21 @@ def _kernel_vs_plain_times(kernel, plain, args, kwargs, n_calls=500):
                         "plain": lambda: plain(*args, **kwargs)}, n_calls)
 
 
-def _forward_times(model, fn, host_batches, dev, seed, kernel_groups=None):
+def _forward_times(model, fn, host_batches, dev, seed, kernel_groups=None,
+                   make_batch=None):
     """Forward time at B=128 (median of five CUDA-event windows over eight
     distinct batches), device busy time and idle share, the split by
     operator and the top kernels, FLOPs, serving-callable latency and peak
     device memory; ``kernel_groups`` (name -> kernel-name substrings) adds
-    the device ms per forward of each group of kernels."""
+    the device ms per forward of each group of kernels; ``make_batch(n,
+    image, seed)`` makes the batches (``_synthetic_batch`` by default)."""
+    make_batch = make_batch or _synthetic_batch
     fn_s = []
     for hb in host_batches:  # warm: the callable already ran
         t0 = time.perf_counter()
         fn(hb)
         fn_s.append(time.perf_counter() - t0)
-    dev_batches = [_to_device(_synthetic_batch(B, IMAGE, seed=seed + i), dev)
-                   for i in range(8)]
+    dev_batches = [_to_device(make_batch(B, IMAGE, seed=seed + i), dev) for i in range(8)]
     with torch.inference_mode():
         for b in dev_batches[:2]:
             model(b)
@@ -498,10 +560,11 @@ def _card_vs_cpu(name, dev, batch=None, **dims):
     the CPU: max abs difference of the forecasts."""
     from visuelle2_tpu_torch.models import VocabSizes, build
 
+    if name != "gtm_v1":  # gtm_v1's text arrives featurized: no vocabulary
+        dims["vocab"] = VocabSizes(5, 6, 5, 126)
     small = build(name, device=dev, generator=torch.Generator().manual_seed(2),
-                  image_arch="tiny", vocab=VocabSizes(5, 6, 5, 126), **dims)
-    small_cpu = build(name, device="cpu", image_arch="tiny", vocab=VocabSizes(5, 6, 5, 126),
-                      **dims)
+                  image_arch="tiny", **dims)
+    small_cpu = build(name, device="cpu", image_arch="tiny", **dims)
     small_cpu.load_state_dict({k: v.cpu() for k, v in small.state_dict().items()})
     sb = _synthetic_batch(8, 64, seed=3) if batch is None else batch
     with torch.inference_mode():
@@ -1618,6 +1681,438 @@ def _train_demand_phase(dev, card, zero_counts, counted):
                 "per_train_step_backward": gru_backward["fused_gru_sequence"]}}
 
 
+def _stats_reference(X, method, teacher_forcing):
+    """float64 numpy forecasts of 2-week windows X [B, W, 2] in the layouts
+    of ``ops/stats.py``: the closed forms (naive; SES with the least-squares
+    initial level; Holt's exact extrapolation x1 + h·(x1 − x0))."""
+    X = X.astype(np.float64)
+    B, W, T = X.shape
+    if method == "naive":
+        f = X[:, :, -1] if teacher_forcing else np.repeat(X[:, :1, -1], W, axis=1)
+        return f[..., None]
+    if method == "ses":
+        def level(x, a=0.3):
+            c, d, cs, ds = np.zeros(len(x)), np.ones(len(x)), [], []
+            for t in range(x.shape[1]):
+                cs.append(c)
+                ds.append(d)
+                c, d = a * x[:, t] + (1 - a) * c, (1 - a) * d
+            cs, ds = np.stack(cs, 1), np.stack(ds, 1)
+            return c + d * (ds * (x - cs)).sum(1) / (ds * ds).sum(1)
+        if teacher_forcing:
+            return level(X.reshape(B * W, T)).reshape(B, W, 1)
+        return np.repeat(level(X[:, 0])[:, None, None], W, axis=2)
+    if teacher_forcing:
+        return (2 * X[:, :, 1] - X[:, :, 0])[..., None]
+    h = np.arange(1, W + 1)
+    return (X[:, 0, 1:2] + h * (X[:, 0, 1:2] - X[:, 0, 0:1]))[:, None, :]
+
+
+def _stats_phase(dev, card, zero_counts, counted):
+    """Phase stats: ``forecast_stat.main`` on the card (see the module
+    docstring)."""
+    from visuelle2_tpu_torch.cli import common, forecast_stat
+    from visuelle2_tpu_torch.data.images import ImageStore
+    from visuelle2_tpu_torch.data.pipeline import load_visuelle2
+    from visuelle2_tpu_torch.data.synthetic import make_synthetic_dataset
+    from visuelle2_tpu_torch.ops import stats
+    from visuelle2_tpu_torch.ops.metrics import calc_error_metrics
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    runs, checks = {}, {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = make_synthetic_dataset(tmp, num_train=0, num_test=CLI_ROWS, seed=0,
+                                      write_images=False, rows_per_image=CLI_ROWS_PER_IMAGE)
+        paths = load_visuelle2(path, "test", demand=False, output_len=1).image_paths
+        unique, row_to_img = ImageStore.unique_paths(paths)
+        pixels = np.random.default_rng(0).integers(
+            0, 256, (len(unique), STATS_IMAGE, STATS_IMAGE, 3), dtype=np.uint8)
+        ImageStore(pixels, row_to_img).write_cache(
+            ImageStore.cache_path(path, "test", STATS_IMAGE), paths)
+        for method in ("naive", "ses", "holt"):
+            for tf in (1, 0):
+                label = f"{method} teacher_forcing={tf}"
+                argv = ["--dataset_path", path, "--device", dev.type, "--batch_size", str(B),
+                        "--image_size", str(STATS_IMAGE), "--method", method,
+                        "--use_teacher_forcing", str(tf)]
+                zero_counts()
+                text = io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(text):
+                    wape, mae = forecast_stat.main(argv)
+                pass_s = time.perf_counter() - t
+                launches = {n: w.launches for n, w in counted.items()}
+                # The CLI's own forecasts, unrounded, against a float64
+                # recomputation over the same loader's windows.
+                args = forecast_stat.build_parser().parse_args(argv)
+                with contextlib.redirect_stdout(io.StringIO()):
+                    gt, got = forecast_stat.forecasts(args)
+                loaders, _, norm = common.build_loaders(args, demand=False, output_len=1,
+                                                        splits=("test",))
+                want, want_gt = [], []
+                for batch in loaders["test"]:
+                    n = int(batch["mask"].sum())
+                    want.append(_stats_reference(batch["X"].numpy()[:n], method, tf).squeeze())
+                    want_gt.append(batch["y"].numpy()[:n].astype(np.float64).squeeze())
+                want, want_gt = np.concatenate(want) * norm, np.concatenate(want_gt) * norm
+                err32 = np.abs(gt.astype(np.float64) - got.astype(np.float64))
+                err64 = np.abs(want_gt - want)
+                got_m = {"wape": 100 * err32.sum() / gt.astype(np.float64).sum(),
+                         "mae": err32.mean()}
+                want_m = {"wape": 100 * err64.sum() / want_gt.sum(), "mae": err64.mean()}
+                runs[label] = {"printed": [wape, mae], "wape": got_m["wape"], "mae": got_m["mae"],
+                               "float64": want_m, "forecasts": int(got.size),
+                               "pass_s": pass_s, "launches": launches,
+                               "tail": text.getvalue().strip().splitlines()[-2:]}
+                for k in ("wape", "mae"):
+                    checks[f"{label}: {k} vs float64"] = abs(got_m[k] - want_m[k]) <= \
+                        STATS_RTOL * abs(want_m[k])
+                checks[f"{label}: printed"] = (mae, wape) == calc_error_metrics(gt, got) and \
+                    runs[label]["tail"] == [f"Results for {method}", f"{wape},{mae}"]
+                checks[f"{label}: {CLI_ROWS} rows, finite"] = got.shape == gt.shape and \
+                    len(got) == CLI_ROWS and bool(np.isfinite(got).all())
+                checks[f"{label}: no kernel launch"] = not any(launches.values())
+    holt = {}
+    for series, recorded in HOLT_PINNED.items():
+        x = torch.tensor([series])
+        on_card = [t.cpu() for t in stats.holt_fit(x.to(dev))]
+        on_cpu = stats.holt_fit(x)
+        forecast = stats.holt_fit_forecast(x.to(dev), 3).cpu()[0]
+        key = f"T={len(series)}"
+        holt[key] = {"forecast": forecast.tolist(), "recorded": list(recorded),
+                     "picks": on_card[2][0].tolist()}
+        checks[f"holt {key}: card = CPU, bit for bit"] = all(
+            torch.equal(a, b) for a, b in zip(on_card, on_cpu)) and torch.equal(
+            forecast, stats.holt_fit_forecast(x, 3)[0])
+        checks[f"holt {key}: recorded constants"] = bool(np.allclose(
+            forecast.numpy(), recorded, rtol=HOLT_PINNED_RTOL, atol=0))
+    _emit({"phase": "stats", **card, "rows": CLI_ROWS, "image": STATS_IMAGE, "batch": B,
+           "rtol": STATS_RTOL, "timing": "pass_s: host clock of forecast_stat.main "
+           "(loader, copies, forecasts, metrics)", "runs": runs, "holt_pinned": holt,
+           "holt_pinned_rtol": HOLT_PINNED_RTOL,
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"stats: {name}: {json.dumps(runs)}")
+
+
+def _gtm_v1_batches():
+    """``make(n, image, seed)``: ``_synthetic_batch`` plus gtm_v1's
+    ``text_features``, the hashed featurizer's vectors of the rows'
+    category, color and fabric (the synthetic dataset's label names)."""
+    from visuelle2_tpu_torch.data.synthetic import CATEGORIES, COLORS, FABRICS
+    from visuelle2_tpu_torch.models.gtm_v1 import TextFeaturizer
+
+    names = (CATEGORIES, COLORS, FABRICS)
+    with contextlib.redirect_stdout(io.StringIO()):
+        featurizer = TextFeaturizer(*({v: i for i, v in enumerate(n)} for n in names))
+
+    def make(n, image_size, seed):
+        b = _synthetic_batch(n, image_size, seed)
+        b["text_features"] = featurizer(*(b[k] % len(v) for k, v in zip(("cat", "col", "fab"),
+                                                                        names)))
+        return b
+    return make
+
+
+def _forward_gtm_v1_phase(dev, card, zero_counts, counted):
+    """Phase forward_gtm_v1: the full-width gtm_v1 through ``make_forecaster``
+    (see the module docstring)."""
+    from visuelle2_tpu_torch.eval.export import make_forecaster
+    from visuelle2_tpu_torch.models import build
+
+    make = _gtm_v1_batches()
+    example = make(B, IMAGE, seed=1)
+    host_batches = [make(B, IMAGE, seed=10 + i) for i in range(N_FWD)]
+    runs, checks = {}, {}
+    for tower, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for ar in (False, True):
+            label = f"{tower} tower, {'AR' if ar else 'non-AR'}"
+            model = build("gtm_v1", device=dev, generator=torch.Generator().manual_seed(0),
+                          image_dtype=dtype, autoregressive=ar, **GTM_V1_DIMS)
+            fn, _ = make_forecaster(model, example, device=dev)
+            zero_counts()
+            outs = [fn(hb) for hb in host_batches]
+            launches = {n: w.launches for n, w in counted.items()}
+            checks[f"{label}: finite [{B}, 12]"] = all(
+                o.shape == (B, 12) and np.isfinite(o).all() for o in outs)
+            checks[f"{label}: distinct batches differ"] = not np.array_equal(outs[0], outs[1])
+            checks[f"{label}: no kernel launch"] = not any(launches.values())
+            runs[label] = {"forecast_absmax": float(np.abs(outs[0]).max())}
+            if not ar:
+                runs[label]["times"] = _forward_times(model, fn, host_batches, dev, seed=700,
+                                                      make_batch=make)
+            del model, fn
+            torch.cuda.empty_cache()
+    small = {"non-AR": _card_vs_cpu("gtm_v1", dev, batch=make(8, 64, seed=3),
+                                    embedding_dim=16, hidden_dim=16),
+             "AR": _card_vs_cpu("gtm_v1", dev, batch=make(8, 64, seed=3), embedding_dim=16,
+                                hidden_dim=16, autoregressive=True)}
+    for k, err in small.items():
+        checks[f"small {k}: card vs CPU in f32"] = err <= F32_ATOL
+    _emit({"phase": "forward_gtm_v1", **card, "model": "gtm_v1", "batch": B, "image": IMAGE,
+           **GTM_V1_DIMS, "text_features": 768, "forwards": N_FWD, "runs": runs,
+           "f32_card_vs_cpu_max_abs_err": small, "f32_tol": F32_ATOL,
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"forward_gtm_v1: {name}")
+
+
+def _train_gtm_v1_phase(dev, card, zero_counts, counted):
+    """Phase train_gtm_v1: the full-width gtm_v1's train step through
+    ``Trainer``, then ``train_transformer.main`` and ``forecast_transformer
+    --ckpt_path`` (see the module docstring)."""
+    from visuelle2_tpu_torch.cli import forecast_transformer, train_transformer
+    from visuelle2_tpu_torch.models import build
+    from visuelle2_tpu_torch.train import loop
+
+    make = _gtm_v1_batches()
+    out = {}
+    model = build("gtm_v1", device=dev, generator=torch.Generator().manual_seed(9),
+                  image_dtype=torch.bfloat16, **GTM_V1_DIMS)
+    trainer = loop.Trainer(model, loop.TrainConfig(grad_clip=0.5, learning_rate=TRAIN_LR))
+    state = trainer.init_state()
+    tower = {k: v.clone() for k, v in model.image_encoder.state_dict().items()}
+    batches = [_to_device(make(B, IMAGE, seed=800 + i), dev) for i in range(8)]
+    out["trainer"], prof = _measure_trainer(trainer, state, batches,
+                                            model.image_encoder.backbone, zero_counts,
+                                            counted["fused_gated_residual"])
+    trainer_launches = {n: w.launches for n, w in counted.items()}
+    after = model.image_encoder.state_dict()
+    checks = {"finite losses (Trainer)": bool(np.isfinite(out["trainer"]["losses"]).all()),
+              "no host sync in a train step": not out["trainer"]["host_syncs_in_a_step"],
+              "no kernel launch (Trainer)": not any(trainer_launches.values()),
+              "tower parameters and statistics bit-unchanged": all(
+                  torch.equal(after[k], v) for k, v in tower.items()),
+              "tower BatchNorm in eval mode": model.training
+              and not model.image_encoder.backbone.training}
+    out["trainer"]["tower_tensors"] = len(tower)
+    del model, trainer, state, batches, prof, tower, after
+    torch.cuda.empty_cache()
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        t0 = time.perf_counter()
+        path = _write_train_split(tmp)
+        out["dataset_setup_s"] = time.perf_counter() - t0
+        ck = os.path.join(tmp, "ck")
+        split = ["--dataset_path", path, "--device", dev.type, "--bf16_backbone",
+                 "--batch_size", str(B), "--image_size", str(IMAGE)]
+        zero_counts()
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            best = train_transformer.main(split + [
+                "--model", "gtm_v1", "--demand", "1", "--image_arch", "resnet50",
+                "--epochs", str(TRAIN_EPOCHS), "--learning_rate", str(TRAIN_LR),
+                "--ckpt_dir", ck])
+        out["train_transformer"] = {"wall_s": time.perf_counter() - t0, "best": best,
+                                    "launches": {n: w.launches for n, w in counted.items()},
+                                    "tail": text.getvalue().strip().splitlines()[-2:]}
+        with open(os.path.join(ck, "metrics.jsonl")) as f:
+            epochs = [r for r in map(json.loads, f) if "val_wWAPE" in r]
+        with open(os.path.join(ck, "hparams.json")) as f:
+            out["hparams"] = json.load(f)
+        best_epoch = int(os.path.basename(best))
+        logged = next(r["val_wWAPE"] for r in epochs if r["epoch"] == best_epoch)
+        zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            r = forecast_transformer.main(split + ["--ckpt_path", best])
+        out["forecast"] = {"best_epoch": best_epoch, "wape": r.wape, "logged_val_wWAPE": logged,
+                           "rel_diff": abs(r.wape - logged) / abs(logged),
+                           "num_forecasts": r.num_forecasts,
+                           "launches": {n: w.launches for n, w in counted.items()}}
+        out["epochs"] = epochs
+    checks.update({
+        "train_transformer: epochs logged": [r["epoch"] for r in epochs] == list(
+            range(TRAIN_EPOCHS)),
+        "train_transformer: finite losses": all(np.isfinite(r["train_loss"]) for r in epochs),
+        "train_transformer: no kernel launch": not any(
+            out["train_transformer"]["launches"].values()),
+        "hparams.json: gtm_v1, hashed-crc32-v1": out["hparams"]["model"] == "gtm_v1" and
+        out["hparams"]["text_fingerprint"] == "hashed-crc32-v1",
+        "forecast --ckpt_path: WAPE": out["forecast"]["rel_diff"] <= TRAIN_WAPE_RTOL,
+        "forecast --ckpt_path: no kernel launch": not any(out["forecast"]["launches"].values())})
+    _emit({"phase": "train_gtm_v1", **card, "model": "gtm_v1", "batch": B, "image": IMAGE,
+           **GTM_V1_DIMS, "bf16_backbone": True, "train_rows": TRAIN_ROWS,
+           "test_rows": CLI_ROWS, "epochs": TRAIN_EPOCHS, "timing": TRAIN_TIMING, **out,
+           "wape_rtol": TRAIN_WAPE_RTOL,
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"train_gtm_v1: {name}")
+
+
+def _legacy_inception_phase(dev, card, zero_counts, additive, additive_plain):
+    """Phase legacy_inception: the InceptionV3 backbone, the legacy patch
+    encoder and its additive attention through ``fused_additive_attention``
+    at full width (see the module docstring).  Returns the numbers the
+    kernels line gives row 3."""
+    from visuelle2_tpu_torch.data.images import normalize_images
+    from visuelle2_tpu_torch.models import legacy
+    from visuelle2_tpu_torch.models.inception import InceptionV3Backbone
+    from visuelle2_tpu_torch.models.registry import init_parameters
+    from visuelle2_tpu_torch.ops.cuda import roofline
+
+    def drawn(module, seed):
+        init_parameters(module, torch.Generator().manual_seed(seed))
+        return module.eval()
+
+    out, checks = {}, {}
+    images = torch.from_numpy(_synthetic_batch(B, IMAGE, seed=900)["images"]).to(dev)
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        net = drawn(InceptionV3Backbone(dtype=dtype), 0).to(dev)
+        x = normalize_images(images, dtype).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            y = net(x)
+            windows = [_cuda_ms(lambda: net(x), 4) for _ in range(3)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            net(x)
+            torch.cuda.synchronize()
+        out[label] = {"forward_ms": float(np.median(windows)), "forward_ms_windows": windows,
+                      "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        checks[f"{label}: [{B}, 2048, 8, 8], finite"] = tuple(y.shape) == (B, 2048, 8, 8) and \
+            bool(torch.isfinite(y).all())
+        del net, x, y
+    # The backbone at a small batch on the card against the CPU, f32, no TF32.
+    cpu_net = drawn(InceptionV3Backbone(), 1)
+    card_net = drawn(InceptionV3Backbone(), 1).to(dev)
+    small = images[:2].cpu()
+    with torch.inference_mode():
+        on_cpu = cpu_net(normalize_images(small).permute(0, 3, 1, 2))
+        on_card = card_net(normalize_images(small.to(dev)).permute(0, 3, 1, 2)).cpu()
+    out["f32_card_vs_cpu_max_abs_err"] = (on_card - on_cpu).abs().max().item()
+    checks["backbone: card vs CPU in f32"] = out["f32_card_vs_cpu_max_abs_err"] <= F32_ATOL
+    del cpu_net, card_net
+
+    encoder = drawn(legacy.LegacyImageEncoder(LEGACY_DIM), 2).to(dev)
+    attention = drawn(legacy.LegacyAdditiveAttention(LEGACY_DIM, LEGACY_DIM, LEGACY_DIM),
+                      3).to(dev)
+    hidden = torch.randn(B, LEGACY_DIM, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4)) * 0.5
+    zero_counts()
+    with torch.inference_mode():
+        tokens = encoder(images)
+        got = attention(tokens, hidden)
+        torch.cuda.synchronize()
+    launches = additive.launches
+    args = attention.kernel_inputs(tokens, hidden)
+    kw = {"weight_on": attention.weight_on}
+    with torch.inference_mode():
+        want = additive_plain(*args, **kw)
+    err, ok = _additive_err(got, want)
+    checks[f"encoder: [{B}, 64, {LEGACY_DIM}], finite"] = tuple(tokens.shape) == (
+        B, 64, LEGACY_DIM) and bool(torch.isfinite(tokens).all())
+    checks["attention: one wrapper call"] = launches == 1
+    checks["attention: kernel vs plain within tolerance"] = ok
+    with torch.inference_mode():
+        per_kernel = _profiled_kernels_us(lambda: additive(*args, **kw))
+        device_ms, call_ms = _kernel_vs_plain_times(additive, additive_plain, args, kw,
+                                                    n_calls=50)
+    n_bytes, flops = roofline.additive_attention_cost(B, 64, LEGACY_DIM, LEGACY_DIM,
+                                                      LEGACY_DIM, attention.weight_on)
+    bound_ms, bound_by = roofline.f32_accurate_bound_ms(n_bytes, flops)
+    call = {"shape": {"B": B, "L": 64, "De": LEGACY_DIM, "Dd": LEGACY_DIM, "A": LEGACY_DIM,
+                      "weight_on": attention.weight_on},
+            "kernel_launches_per_call": _kernels_per_call(per_kernel),
+            "kernel_device_us": 1e3 * device_ms["kernel"],
+            "kernel_device_us_per_launch": _launch_split_us(per_kernel),
+            "plain_device_us": 1e3 * device_ms["plain"],
+            "kernel_call_us": 1e3 * call_ms["kernel"], "plain_call_us": 1e3 * call_ms["plain"],
+            "bytes": n_bytes, "flops": flops, "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
+            "bound_simt_f32_us": 1e3 * roofline.bound_ms(n_bytes, flops)[0]}
+    checks["attention: at most 2 kernels a call"] = \
+        call["kernel_launches_per_call"] <= ADDITIVE_MAX_LAUNCHES
+    _emit({"phase": "legacy_inception", **card, "batch": B, "image": IMAGE,
+           "embedding_dim": LEGACY_DIM, "backbone": out, "f32_tol": F32_ATOL,
+           "attention": {"launches": launches, "max_abs_err": err, "atol": MHA_ATOL,
+                         "rtol": MHA_RTOL, "call": call},
+           "timing": "forward_ms: CUDA events over 4 calls on one batch, the median of 3 "
+                     "windows; the attention's µs as additive_kernel_times",
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"legacy_inception: {name}: {err}")
+    return {"launches": launches, "max_abs_err": err, "call": call}
+
+
+def _run_all_phase(dev, card, zero_counts, counted):
+    """Phase run_all: ``run_all.main`` on a small split (see the module
+    docstring).  Returns each counted kernel's launches in the run."""
+    from visuelle2_tpu_torch.cli import forecast_dl, forecast_stat, run_all, train_dl
+    from visuelle2_tpu_torch.data.images import ImageStore
+    from visuelle2_tpu_torch.data.pipeline import load_visuelle2
+    from visuelle2_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    checks = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = make_synthetic_dataset(os.path.join(tmp, "d"), num_train=RUN_ALL_ROWS[0],
+                                      num_test=RUN_ALL_ROWS[1], seed=0, write_images=False,
+                                      rows_per_image=2)
+        for split in ("train", "test"):
+            paths = load_visuelle2(path, split, demand=True, output_len=12).image_paths
+            unique, row_to_img = ImageStore.unique_paths(paths)
+            pixels = np.random.default_rng(5).integers(
+                0, 256, (len(unique), RUN_ALL_IMAGE, RUN_ALL_IMAGE, 3), dtype=np.uint8)
+            ImageStore(pixels, row_to_img).write_cache(
+                ImageStore.cache_path(path, split, RUN_ALL_IMAGE), paths)
+        base = ["--dataset_path", path, "--batch_size", str(RUN_ALL_BATCH), "--image_arch",
+                "tiny", "--image_size", str(RUN_ALL_IMAGE), "--device", dev.type]
+        # Spies on the CLIs run_all chains: each training's returned
+        # checkpoint and each forecast's --ckpt_path.
+        trained, scored = [], []
+        train_run, forecast_run = train_dl.run, forecast_dl.run
+
+        def train_spy(args):
+            best = train_run(args)
+            trained.append(best)
+            return best
+
+        def forecast_spy(args, parser=None, argv=None):
+            scored.append(args.ckpt_path)
+            return forecast_run(args, parser, argv)
+
+        train_dl.run, forecast_dl.run = train_spy, forecast_spy
+        zero_counts()
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(text):
+                results = run_all.main(base + ["--epochs", "1", "--ckpt_root",
+                                               os.path.join(tmp, "cks")])
+        finally:
+            train_dl.run, forecast_dl.run = train_run, forecast_run
+        wall = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in counted.items()}
+        alone = {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            for method in ("naive", "ses", "holt"):
+                alone[method] = forecast_stat.main(base + ["--method", method])
+    printed = text.getvalue().strip().splitlines()[-1]
+    tasks = ("so_fore_2_1", "so_fore_2_10", "demand")
+    summary = {k: ({"wape": r.wape, "mae": r.mae, "num_forecasts": r.num_forecasts}
+                   if k in tasks else list(r)) for k, r in results.items()}
+    checks.update({
+        "six results, printed": list(results) == [*tasks, "stat_naive", "stat_ses",
+                                                  "stat_holt"]
+        and printed.startswith("{'so_fore_2_1'"),
+        "forecasts finite": all(np.isfinite([results[k].wape, results[k].mae]).all()
+                                for k in tasks),
+        "each forecast scored its training's checkpoint": len(trained) == 3
+        and all(trained) and scored == trained,
+        "stat results equal forecast_stat alone": all(
+            tuple(results[f"stat_{m}"]) == tuple(v) for m, v in alone.items())})
+    _emit({"phase": "run_all", **card, "rows": RUN_ALL_ROWS, "image": RUN_ALL_IMAGE,
+           "batch": RUN_ALL_BATCH, "image_arch": "tiny", "epochs": 1, "results": summary,
+           "stat_alone": alone, "checkpoints": trained, "wall_s": wall, "launches": launches,
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"run_all: {name}: {summary}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs on the GPU only")
@@ -1989,6 +2484,9 @@ def main():
              f"additive attention launched more than {ADDITIVE_MAX_LAUNCHES} kernels a call: "
              f"{add_kernels_per_call}")
 
+    # 11b. the legacy InceptionV3 encoder and its additive attention (L = 64) --
+    legacy_attn = _legacy_inception_phase(dev, card, zero_counts, additive, additive_plain)
+
     # 12. GRU sequence vs plain and cuDNN ---------------------------------------------
     gru_errs = {}
     for (Bk, T, I, H), atol in (((B, 52, 3, 512), GRU_ATOL_FULL), ((37, 9, 5, 24), GRU_ATOL_SMALL),
@@ -2167,6 +2665,9 @@ def main():
         "fused_additive_attention": ADDITIVE_KERNEL_NAMES})
     _emit({"phase": "times_demand", **card, "model": "cross_attn_rnn_demand", **demand_times})
 
+    # 16a. the full-width gtm_v1 through the serving callable ---------------------
+    _forward_gtm_v1_phase(dev, card, zero_counts, counted)
+
     # 16b. the forecast CLIs on a full-width split --------------------------------
     cli_launches = _forecast_cli_phase(
         dev, card, zero_counts, counted,
@@ -2174,6 +2675,8 @@ def main():
                        "cross_attn_rnn_demand": demand_times["forecasts_per_s"]},
         forward_busy_ms={"gated_v4": v4_times["forward_device_busy_ms"],
                          "cross_attn_rnn_demand": demand_times["forward_device_busy_ms"]})
+    # 16b'. the statistical baselines through forecast_stat -----------------------
+    _stats_phase(dev, card, zero_counts, counted)
 
     # 16c.–16e. training: the kernels under autograd, card vs CPU, full width ------
     train_kernel_err = _train_kernel_phase(dev, card, kernel, plain, mha, mha_plain,
@@ -2187,6 +2690,8 @@ def main():
         dev, card, additive, additive_plain, gru_kernel, gru_plain)
     parity_launches = _train_demand_parity_phase(dev, card, additive)
     demand_train_launches = _train_demand_phase(dev, card, zero_counts, counted)
+    # 16i. gtm_v1 training: Trainer, train_transformer, forecast --ckpt_path -----
+    _train_gtm_v1_phase(dev, card, zero_counts, counted)
 
     per_call = {}
     with torch.inference_mode():
@@ -2331,6 +2836,9 @@ def main():
                                                                      device=dev),
            "method": convfloor.timing.METHOD})
 
+    # 22. the reference's whole task list through run_all --------------------------
+    run_all_launches = _run_all_phase(dev, card, zero_counts, counted)
+
     # kernels line, card line, result ---------------------------------------------
     big = max(convfloor.SHAPES, key=lambda nm: probe_us[nm]["bf16_kernel"])
 
@@ -2386,6 +2894,10 @@ def main():
         "launches_per_call": max(v["kernel_launches_per_call"] for v in per_call.values()),
         "launches_train": {**demand_train_launches["fused_additive_attention"],
                            "per_step_small_width": parity_launches},
+        "launches_legacy": legacy_attn["launches"],
+        "legacy_max_abs_err": legacy_attn["max_abs_err"],
+        "legacy_L64_us": {f: legacy_attn["call"][f] for f in (
+            "kernel_device_us", "plain_device_us", "bound_us", "bound_simt_f32_us")},
         "train_max_abs_err": train_add_err["fused_additive_attention"],
         "train_forward_backward_us": {k: v for k, v in train_add_times.items()
                                       if k.startswith("additive")},
@@ -2424,6 +2936,7 @@ def main():
         # Each path's own count, zeroed just before it: "launches" is the
         # path the row has always named; the forecast CLIs' scoring runs too.
         row["launches_forecast_cli"] = cli_launches[row["name"]]
+        row["launches_run_all"] = run_all_launches[row["name"]]
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

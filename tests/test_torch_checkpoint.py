@@ -308,8 +308,7 @@ def test_resume_auto_on_an_empty_directory_starts_fresh(dataset, tmp_path, capsy
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--pretrained_backbone", "x.npz"], NotImplementedError, "item 13"),
-    (["--dedup_images", "1"], NotImplementedError, "item 11"),
-    (["--model", "gtm_v1"], NotImplementedError, "item 10")])
+    (["--dedup_images", "1"], NotImplementedError, "item 11")])
 def test_train_flags_not_ported_yet_raise(dataset, tmp_path, flags, error, match):
     argv = ["--dataset_path", dataset, "--model", "gated_v4", *SMALL, "--epochs", "1",
             "--ckpt_dir", str(tmp_path / "ck"), *flags]

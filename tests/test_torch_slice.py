@@ -26,7 +26,7 @@ from visuelle2_tpu.models import build as jbuild
 from visuelle2_tpu_torch.convert import load_jax_variables
 from visuelle2_tpu_torch.eval.export import make_forecaster
 from visuelle2_tpu_torch.eval.server import drain_and_close, make_server
-from visuelle2_tpu_torch.models import VocabSizes, build
+from visuelle2_tpu_torch.models import VocabSizes, build, model_names
 
 ATOL = 1e-4
 
@@ -173,9 +173,11 @@ def test_build_covers_only_the_slice():
         model = build(name, device="cpu", image_arch="tiny", attention_dim=16,
                       embedding_dim=16, hidden_dim=16)
         assert not model.training
-    for name in ("gtm_v1", "oracle"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            build(name, device="cpu")
+    model = build("gtm_v1", device="cpu", image_arch="tiny", embedding_dim=16, hidden_dim=16)
+    assert not model.training and not model.image_encoder.backbone.training
+    oracle = build("oracle", device="cpu", method="holt")
+    assert oracle.method == "holt" and oracle.device == torch.device("cpu")
+    assert len(model_names()) == 11
     with pytest.raises(KeyError):
         build("no_such_model", device="cpu")
     with pytest.raises(ValueError, match="text-anchored"):

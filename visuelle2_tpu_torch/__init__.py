@@ -21,7 +21,11 @@ dataset's test split (``data``, ``eval.forecast.score_split`` and the CLIs
 seq2seq family (train mode of its modules, ``train.optim.Adafactor``,
 ``train.loop.Trainer``, ``train.checkpoint``, ``train.hparams`` and
 ``cli.train_transformer``; ``forecast_transformer --ckpt_path`` scores a
-trained checkpoint).  Entry points put the model on ``cuda`` unless the
+trained checkpoint), training the CrossAttnRNN family (``cli.train_dl``),
+the VISUELLE-1 GTM (``gtm_v1``), the statistical baselines (``oracle``,
+``ops.stats``, ``cli.forecast_stat``), the whole task list
+(``cli.run_all``) and the legacy InceptionV3 blocks (``models.inception``,
+``models.legacy``): all 11 registry models.  Entry points put the model on ``cuda`` unless the
 caller passes ``device="cpu"`` (``_device.resolve_device``, ``--device`` on
 the CLIs).
 

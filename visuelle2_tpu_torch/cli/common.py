@@ -30,6 +30,7 @@ from visuelle2_tpu_torch.data.pipeline import (
 )
 from visuelle2_tpu_torch.eval.forecast import dump_attention, score_split
 from visuelle2_tpu_torch.models.base import VocabSizes
+from visuelle2_tpu_torch.models.gtm_v1 import TextFeaturizer
 
 # Flags the forecast CLIs accept but whose work is ported later: a
 # non-default value raises, naming where it lands.
@@ -125,21 +126,26 @@ def resolve_quantize(args) -> str:
 
 
 def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test"),
-                  dedup_eval_images: bool = False, dedup_train_images: bool = False,
+                  text_features: bool = False, dedup_eval_images: bool = False,
+                  dedup_train_images: bool = False,
                   pin_memory: bool = False) -> Tuple[dict, VocabSizes, float]:
     """Returns ``({split: BatchLoader}, vocab, norm_scalar)``.
 
-    ``dedup_eval_images`` makes non-train loaders ship unique-image batches
-    (identical outputs, backbone FLOPs divided by the photo duplication
-    factor); ``dedup_train_images`` asks the train loader for the grouped
-    sampler, which raises until ROADMAP Queue 1 item 11 (``--dedup_images 1``
-    on a train CLI).  ``pin_memory``
-    pins every batch (a CUDA target).  The gtm_v1 text featurizer arrives
-    with that model (item 10).
+    ``text_features`` runs gtm_v1's ingest-time text featurizer
+    (``models/gtm_v1.py::TextFeaturizer``) over each split, attaches the
+    [N, 768] float32 array as the batch extra ``text_features`` and sets each
+    loader's ``text_fingerprint`` (written into ``hparams.json`` at training,
+    checked when a checkpoint is scored).  ``dedup_eval_images`` makes
+    non-train loaders ship unique-image batches (identical outputs, backbone
+    FLOPs divided by the photo duplication factor); ``dedup_train_images``
+    asks the train loader for the grouped sampler, which raises until
+    ROADMAP Queue 1 item 11 (``--dedup_images 1`` on a train CLI).
+    ``pin_memory`` pins every batch (a CUDA target).
     """
     cat_dict, col_dict, fab_dict = load_label_dicts(args.dataset_path)
     vocab = VocabSizes.from_dicts(cat_dict, col_dict, fab_dict)
     norm_scalar = load_norm_scalar(args.dataset_path)
+    featurizer = TextFeaturizer(cat_dict, col_dict, fab_dict) if text_features else None
 
     loaders = {}
     for split in splits:
@@ -150,10 +156,16 @@ def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test
             os.path.join(args.dataset_path, "images"), arrays.image_paths,
             cache_file=ImageStore.cache_path(args.dataset_path, split, args.image_size),
             size=args.image_size)
+        extras = None
+        if featurizer is not None:
+            extras = {"text_features": featurizer(arrays.cat, arrays.col, arrays.fab)}
         dedup = dedup_train_images if split == "train" else dedup_eval_images
         loaders[split] = BatchLoader(
             arrays, store, args.batch_size, shuffle=(split == "train"), seed=args.seed,
-            drop_remainder=(split == "train"), dedup_images=dedup, pin_memory=pin_memory)
+            drop_remainder=(split == "train"), extras=extras, dedup_images=dedup,
+            pin_memory=pin_memory)
+        if featurizer is not None:
+            loaders[split].text_fingerprint = featurizer.fingerprint
     return loaders, vocab, norm_scalar
 
 

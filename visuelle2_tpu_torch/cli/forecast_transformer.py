@@ -1,5 +1,6 @@
-"""Score a GTM-family model (GTM / M4FT / Gated v1–v4) on a dataset's test
-split, counterpart of ``visuelle2_tpu/cli/forecast_transformer.py``.
+"""Score a GTM-family model (GTM / M4FT / Gated v1–v4, ``gtm_v1``) on a
+dataset's test split, counterpart of
+``visuelle2_tpu/cli/forecast_transformer.py``.
 
     python3 -m visuelle2_tpu_torch.cli.forecast_transformer --dataset_path D \\
         --model gated_v4 --demand 1 --output_len 12 --bf16_backbone
@@ -11,9 +12,12 @@ The flags are the JAX CLI's (its train parser's and its own, with the
 directories; the best epoch by default) restores the parameters and
 BatchNorm statistics; the structural flags not passed are filled from its
 ``hparams.json``, a conflicting one is an error, and the dataset is checked
-against the manifest.  Without it the CLI scores a model drawn from
-``--seed``, as the JAX CLI does.  ``--export`` and a ``--quantize`` mode
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+against the manifest; for ``gtm_v1`` (Demand only, on the ingest-time text
+features) a ``text_fingerprint`` other than this host's featurizer's is an
+error.  Without it the CLI scores a model drawn from ``--seed``, as the JAX
+CLI does.  ``--dump_attention`` writes gtm_v1's decoder attention weights.
+``--export`` and a ``--quantize`` mode raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from visuelle2_tpu_torch.train.hparams import (
     TRANSFORMER_STRUCTURAL,
     apply_ckpt_hparams,
     check_dataset_compat,
+    check_text_fingerprint,
 )
 from visuelle2_tpu_torch.utils.seeding import seed_everything
 
@@ -83,8 +88,11 @@ def run(args, parser=None, argv=None):
     device = resolve_cli_device(args)
     loaders, vocab, norm_scalar = build_loaders(
         args, demand=demand, output_len=args.output_len, splits=("test",),
-        dedup_eval_images=bool(args.dedup_images), pin_memory=device.type == "cuda")
+        text_features=args.model == "gtm_v1", dedup_eval_images=bool(args.dedup_images),
+        pin_memory=device.type == "cuda")
     check_dataset_compat(hp, vocab, norm_scalar)
+    if args.model == "gtm_v1":
+        check_text_fingerprint(hp, getattr(loaders["test"], "text_fingerprint", None))
     model = make_model(args, vocab, device=device, generator=seed_everything(args.seed))
     if args.ckpt_path:
         ckpt.restore_for_eval(model, ckpt_step)
@@ -124,7 +132,8 @@ def build_parser(default_model="gtm"):
     # --num_hidden_layers; both are accepted.
     p.add_argument("--num_layers", dest="num_hidden_layers", type=int,
                    default=argparse.SUPPRESS, help="alias of --num_hidden_layers")
-    add_forecast_args(p, dump_help="save the first test batch's attention weights (.npz)")
+    add_forecast_args(p, dump_help="save the first test batch's attention weights (.npz); "
+                                   "gtm_v1's memory-only decoder returns them")
     # Eval dedup gives the same outputs, so it is on by default here.
     p.set_defaults(dedup_images=1)
     return p

@@ -1,5 +1,5 @@
-"""Train a GTM-family model (GTM / M4FT / Gated v1–v4), counterpart of
-``visuelle2_tpu/cli/train_transformer.py``.
+"""Train a GTM-family model (GTM / M4FT / Gated v1–v4, and the VISUELLE-1
+GTM ``gtm_v1``), counterpart of ``visuelle2_tpu/cli/train_transformer.py``.
 
     python3 -m visuelle2_tpu_torch.cli.train_transformer --dataset_path D \\
         --model gated_v4 --bf16_backbone --ckpt_dir ckpt_gtm/
@@ -15,8 +15,11 @@ reads them) and ``metrics.jsonl``, and prints the best checkpoint's path.
 After a SIGTERM it saves at the next step boundary and exits 143; the same
 command with ``--resume_from auto`` continues at the next step.
 
-``gtm_v1`` raises (ROADMAP Queue 1 item 10), as do ``--pretrained_backbone``
-(item 13) and ``--dedup_images 1`` (the grouped sampler, item 11).
+``gtm_v1`` trains on Demand only (``--demand 1``), on the ingest-time text
+features (``cli/common.py::build_loaders``), and its manifest records their
+featurizer's ``text_fingerprint``.  ``--pretrained_backbone`` (ROADMAP
+Queue 1 item 13) and ``--dedup_images 1`` (the grouped sampler, item 11)
+raise.
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ GRAD_CLIP = 0.5  # the transformer family's global-norm clip
 SAVE_TOP_K = 1
 
 
-def hparams_of(args, vocab, norm_scalar) -> dict:
-    """The manifest the JAX trainer writes, key for key."""
+def hparams_of(args, vocab, norm_scalar, text_fingerprint=None) -> dict:
+    """The manifest the JAX trainer writes, key for key; gtm_v1's also
+    records ``text_fingerprint``."""
+    extra = {"text_fingerprint": text_fingerprint} if args.model == "gtm_v1" else {}
     return {
         "cli": "train_transformer", "model": args.model,
         "demand": int(args.demand), "output_len": int(args.output_len),
@@ -51,22 +56,25 @@ def hparams_of(args, vocab, norm_scalar) -> dict:
         "vocab": {"num_cat": vocab.num_cat, "num_col": vocab.num_col,
                   "num_fab": vocab.num_fab, "num_store": vocab.num_store},
         "norm_scalar": float(norm_scalar),
+        **extra,
     }
 
 
 def run(args):
     print(args)
-    if args.model == "gtm_v1":
-        raise NotImplementedError("model 'gtm_v1' is ported in ROADMAP Queue 1 item 10 "
-                                  "(remaining models)")
+    if args.model == "gtm_v1" and not args.demand:
+        raise SystemExit("gtm_v1 is demand-only (the original VISUELLE-1 GTM has no "
+                         "windowed stfore path); use --demand 1")
     device = resolve_cli_device(args)
     loaders, vocab, norm_scalar = build_loaders(
         args, demand=bool(args.demand), output_len=args.output_len,
-        dedup_train_images=bool(args.dedup_images),
+        text_features=args.model == "gtm_v1", dedup_train_images=bool(args.dedup_images),
         dedup_eval_images=True,  # the same outputs; faster per-epoch validation
         pin_memory=device.type == "cuda")
     model = make_model(args, vocab, device=device, generator=seed_everything(args.seed))
-    best = run_training(args, model, loaders, hparams_of(args, vocab, norm_scalar),
+    hparams = hparams_of(args, vocab, norm_scalar,
+                         getattr(loaders["train"], "text_fingerprint", None))
+    best = run_training(args, model, loaders, hparams,
                         norm_scalar=norm_scalar, grad_clip=GRAD_CLIP, save_top_k=SAVE_TOP_K)
     print(f"Best Model Path: {best}")
     return best

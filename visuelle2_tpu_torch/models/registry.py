@@ -7,9 +7,10 @@ initializers: lecun-normal Dense/Conv kernels, zero biases (``_Weights``
 biases at their ``bias_init``, +2.0 for the gated_v2 gates), unit norms,
 U(±1/√H) GRU weights.  The seq2seq family (``gtm``, ``m4ft``,
 ``gated_v1`` … ``gated_v4``) and the CrossAttnRNN family
-(``cross_attn_rnn_21``, ``cross_attn_rnn_210``, ``cross_attn_rnn_demand``)
-are ported; ``gtm_v1`` and ``oracle`` raise ``NotImplementedError`` naming
-their ROADMAP slice.
+(``cross_attn_rnn_21``, ``cross_attn_rnn_210``, ``cross_attn_rnn_demand``),
+the VISUELLE-1 GTM (``gtm_v1``, its frozen tower channels_last like every
+backbone) and the statistical baselines (``oracle``: a parameter-free
+``Oracle`` whose tensors live on ``device``) make the reference's 11.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ from visuelle2_tpu_torch.models.cross_attn_rnn import (
     CrossAttnRNNDemand,
 )
 from visuelle2_tpu_torch.models.encoders import ImagePatchEncoder, ImagePooledEncoder
+from visuelle2_tpu_torch.models.gtm_v1 import GTMv1, _FrozenImageTower
 from visuelle2_tpu_torch.models.norms import BatchNorm1d
+from visuelle2_tpu_torch.models.oracle import Oracle
 from visuelle2_tpu_torch.models.resnet import BatchNorm
 from visuelle2_tpu_torch.models.seq2seq import VARIANTS, Seq2SeqForecaster
 from visuelle2_tpu_torch.ops.attention import _Weights
@@ -42,10 +45,6 @@ _CROSS_ATTN = {
     "cross_attn_rnn_21": CrossAttnRNN21,
     "cross_attn_rnn_210": CrossAttnRNN210,
     "cross_attn_rnn_demand": CrossAttnRNNDemand,
-}
-_LATER = {
-    "gtm_v1": "Queue 1 item 10 (remaining models)",
-    "oracle": "Queue 1 item 10 (remaining models)",
 }
 
 
@@ -90,20 +89,24 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def model_names():
-    """Every name ``build`` knows, the ones still to port included."""
-    return sorted([*_LATER, *_CROSS_ATTN, *VARIANTS])
+    """Every name ``build`` knows: the reference's 11 models."""
+    return sorted([*_CROSS_ATTN, *VARIANTS, "gtm_v1", "oracle"])
 
 
 def build(name: str, *, device=None, generator: Optional[torch.Generator] = None,
-          **overrides) -> nn.Module:
+          **overrides):
     """Build a registry model in eval mode on ``device``.
 
     ``generator`` (default: seeded with 0) draws the initial weights;
     ``convert.load_jax_variables`` replaces them with a JAX model's.
+    ``oracle`` takes ``method`` and ``use_teacher_forcing`` and has no
+    weights.
     """
-    if name in _LATER:
-        raise NotImplementedError(f"model {name!r} is ported in ROADMAP {_LATER[name]}")
-    if name in _CROSS_ATTN:
+    if name == "oracle":
+        return Oracle(device=device, **overrides)
+    if name == "gtm_v1":
+        make = lambda: GTMv1(**{**_GTM_DEFAULTS, **overrides})
+    elif name in _CROSS_ATTN:
         make = lambda: _CROSS_ATTN[name](**{**_CROSS_ATTN_DEFAULTS, **overrides})
     elif name in VARIANTS:
         make = lambda: Seq2SeqForecaster(variant=name, **{**_GTM_DEFAULTS, **overrides})
@@ -113,6 +116,6 @@ def build(name: str, *, device=None, generator: Optional[torch.Generator] = None
     model = make()
     init_parameters(model, generator or torch.Generator().manual_seed(0))
     for mod in model.modules():
-        if isinstance(mod, (ImagePatchEncoder, ImagePooledEncoder)):
+        if isinstance(mod, (ImagePatchEncoder, ImagePooledEncoder, _FrozenImageTower)):
             mod.to(memory_format=torch.channels_last)
     return model.to(dev).eval()

@@ -10,7 +10,10 @@ and norm scalar) next to the checkpoints; the forecast CLIs read it back:
 * a structural flag passed that conflicts with the manifest is an error;
 * a checkpoint with no manifest leaves the flags as given;
 * ``check_dataset_compat``: another dataset's vocabulary sizes are an error,
-  another norm scalar a warning.
+  another norm scalar a warning;
+* ``check_text_fingerprint``: gtm_v1's ``text_fingerprint`` (the text
+  featurizer of its training features) against this host's; a mismatch is
+  an error.
 """
 
 from __future__ import annotations
@@ -118,6 +121,19 @@ def check_dataset_compat(hp: Optional[Dict], vocab, norm_scalar) -> None:
                   f"the checkpoint's training value {want_ns} — denormalized "
                   f"forecasts are in the training dataset's units; expected "
                   f"only for deliberate cross-dataset evaluation.")
+
+
+def check_text_fingerprint(hp: Optional[Dict], have: Optional[str]) -> None:
+    """gtm_v1: the text featurizer that made the checkpoint's training
+    features (``text_fingerprint``) against this host's.  Features of two
+    featurizers are garbage to each other's checkpoints, so a mismatch is an
+    error, not a silently wrong WAPE."""
+    want = (hp or {}).get("text_fingerprint")
+    if want and have and want != have:
+        raise SystemExit(
+            f"gtm_v1 text featurizer mismatch: the checkpoint was trained on "
+            f"'{want}' features but this host produces '{have}'. Score it where "
+            f"the same featurizer runs, or retrain.")
 
 
 def explicit_cli_dests(parser: argparse.ArgumentParser,

@@ -100,11 +100,20 @@ def factored_dims(shape) -> Optional[tuple]:
     return int(order[-2]), int(order[-1])
 
 
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The gradients' joint L2 norm, a 0-d tensor on their device.  The
+    per-tensor norms are joined in float64, so the float32 result does not
+    depend on their order or on zero gradients among them (a frozen leaf
+    that JAX hands a zero gradient and the port none)."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    return torch.linalg.vector_norm(norms.double()).to(norms.dtype)
+
+
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``: the gradients as they are when their
-    joint norm is below ``max_norm``, else (g / norm)·max_norm; new tensors,
-    and no host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    ``global_norm`` is below ``max_norm``, else (g / norm)·max_norm; new
+    tensors, and no host sync."""
+    norm = global_norm(grads)
     below = norm < max_norm
     one = torch.ones((), dtype=norm.dtype, device=norm.device)
     # g / 1 · 1 = g below the clip, else (g / norm) · max_norm.
