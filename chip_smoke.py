@@ -129,6 +129,29 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    and epochs; ``forecast_transformer.main --ckpt_path`` on the best epoch
    prints a WAPE within 1e-4 relative of that epoch's logged
    ``val_wWAPE``;
+16e'. artifact_serve — the serving path from a full-width gated_v4
+   checkpoint (seeded weights saved as ``train_transformer`` saves them,
+   with its ``hparams.json``; bf16 backbone, B=128): ``cli.export`` (no
+   dataset but its label dicts) writes a float and an ``--quantize int8``
+   artifact (MB, ``quantized_arrays``); ``load_forecaster`` loads each on
+   the card (seconds): the float artifact's forecasts within 1e-5 x
+   max|forecast| of ``make_forecaster``'s on the checkpoint's model, the
+   int8 one's within 0.05 x (``tests/test_export.py``'s bound), its weights
+   on the card the same bits as a numpy dequantization on the CPU, exactly 2
+   ``fused_gated_residual`` launches a forward and none of another kernel;
+   a small Demand artifact (tiny backbone at 64², E=A=H=16, B=128): 36
+   ``fused_additive_attention`` launches a forward through its ``fn``;
+   forecasts/s through each callable (CUDA events over distinct batches, in
+   turns); ``forecast_transformer --ckpt_path --export`` and ``cli.serve
+   --artifact`` on the forecast CLIs' split, WAPE and MAE within 1e-6
+   relative; ``cli.serve --artifact --http 0`` as a subprocess on the card,
+   six concurrent requests of 1–3 rows through the port's client, each
+   within ``SERVE_RTOL`` of a direct forward, ``/health``'s requests and
+   dispatches; a SIGTERM while a request is in flight (half its body sent):
+   no new connection is taken, the request is answered, the process exits
+   143; then a seeded ResNet-101 npz, written by the port's codec, spliced
+   into the checkpoint's model on the card: the backbone equal to the npz,
+   the forecasts finite and changed;
 16f. train_additive — ``fused_additive_attention`` (the three Demand shapes,
    B=128, De=Dd=A=512, L = 100, 52, 4, and a ragged one, both ``weight_on``)
    and ``fused_gru_sequence`` (the trend GRU's shape, B=128, T=52, I=3,
@@ -228,7 +251,8 @@ list, each run at the place its number gives among those above:
 
 Then the ``kernels`` line (seven kernels; ``launches`` counts each row's
 own path, ``launches_forecast_cli`` the forecast CLIs' runs,
-``launches_run_all`` run_all's, rows 1, 3 and 4's ``launches_train`` a
+``launches_run_all`` run_all's, ``launches_artifact_serve``
+artifact_serve's in-process forwards, rows 1, 3 and 4's ``launches_train`` a
 train step's forward and backward and an eval forward's, row 3's
 ``launches_legacy`` the legacy attention's), the
 ``nvidia-smi`` line and,
@@ -243,6 +267,7 @@ import io
 import itertools
 import json
 import os
+import queue
 import subprocess
 import sys
 import tempfile
@@ -354,6 +379,21 @@ GTM_V1_DIMS = dict(embedding_dim=32, hidden_dim=64, num_heads=4, num_layers=1,
 LEGACY_DIM = 512
 # run_all on a small split: tiny backbone at 32², 1 epoch, batches of 16.
 RUN_ALL_ROWS, RUN_ALL_IMAGE, RUN_ALL_BATCH = (64, 32), 32, 16
+# Serving from an artifact (artifact_serve): float artifacts to the model
+# path's forecasts within this share of their largest magnitude (the same
+# weights and code: a float32 reordering at most); int8 weights within
+# tests/test_export.py's bound; cli.serve's WAPE and MAE within this of the
+# forecast CLI's on the same checkpoint and split.
+ARTIFACT_FLOAT_TOL, ARTIFACT_INT8_TOL = 1e-5, 0.05
+ARTIFACT_METRIC_RTOL = 1e-6
+ARTIFACT_ARCH = "resnet101"
+# A Demand artifact at a small width: its 36 additive-attention launches a
+# forward through load_forecaster's fn.
+ARTIFACT_DEMAND_DIMS = dict(attention_dim=16, embedding_dim=16, hidden_dim=16,
+                            image_arch="tiny")
+ARTIFACT_DEMAND_IMAGE = 64
+ARTIFACT_TIMED_BATCHES = 4    # distinct batches a timed window, four windows in turns
+SERVE_START_S = 300           # the serving subprocess's time to print its port
 
 
 def _require(cond, msg):
@@ -718,9 +758,7 @@ def _forecast_cli_phase(dev, card, zero_counts, counted, forward_rates, forward_
     ``forward_busy_ms`` are phases 6 and 16's forward-only forecasts/s and
     device busy ms a forward, by model."""
     from visuelle2_tpu_torch.cli import common, forecast_dl, forecast_transformer
-    from visuelle2_tpu_torch.data.images import ImageStore
-    from visuelle2_tpu_torch.data.pipeline import load_label_dicts, load_visuelle2
-    from visuelle2_tpu_torch.data.synthetic import make_synthetic_dataset
+    from visuelle2_tpu_torch.data.pipeline import load_label_dicts
     from visuelle2_tpu_torch.eval.forecast import to_device
     from visuelle2_tpu_torch.models import VocabSizes
     from visuelle2_tpu_torch.utils.seeding import seed_everything
@@ -730,15 +768,7 @@ def _forecast_cli_phase(dev, card, zero_counts, counted, forward_rates, forward_
     runs, checks, launches, rounding = {}, {}, {}, {}
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         t0 = time.perf_counter()
-        path = make_synthetic_dataset(tmp, num_train=0, num_test=CLI_ROWS, seed=0,
-                                      write_images=False, rows_per_image=CLI_ROWS_PER_IMAGE)
-        # The store's cache from seeded numpy pixels: no JPEG, no PIL.
-        paths = load_visuelle2(path, "test", demand=True, output_len=12).image_paths
-        unique, row_to_img = ImageStore.unique_paths(paths)
-        pixels = np.random.default_rng(0).integers(0, 256, (len(unique), IMAGE, IMAGE, 3),
-                                                   dtype=np.uint8)
-        ImageStore(pixels, row_to_img).write_cache(
-            ImageStore.cache_path(path, "test", IMAGE), paths)
+        path, pixels = _write_cli_split(tmp)
         setup_s = time.perf_counter() - t0
         split = ["--dataset_path", path, "--batch_size", str(B), "--image_size", str(IMAGE)]
         v4_f32 = ["--model", "gated_v4", "--demand", "1", "--output_len", "12", *split]
@@ -1306,6 +1336,26 @@ def _train_step_times(trainer, state, batches, n_windows):
     trainer.train_step(state, batches[0])
     torch.cuda.synchronize()
     return float(np.median(windows)), windows, torch.cuda.max_memory_allocated()
+
+
+def _write_cli_split(tmp):
+    """The forecast CLIs' split in ``tmp``: ``CLI_ROWS`` test rows, no train
+    rows, ``CLI_ROWS_PER_IMAGE`` rows a photo, the image store's cache
+    written from seeded numpy pixels (no JPEG, no PIL).  Returns its path
+    and the photos' pixels."""
+    from visuelle2_tpu_torch.data.images import ImageStore
+    from visuelle2_tpu_torch.data.pipeline import load_visuelle2
+    from visuelle2_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    path = make_synthetic_dataset(tmp, num_train=0, num_test=CLI_ROWS, seed=0,
+                                  write_images=False, rows_per_image=CLI_ROWS_PER_IMAGE)
+    paths = load_visuelle2(path, "test", demand=True, output_len=12).image_paths
+    unique, row_to_img = ImageStore.unique_paths(paths)
+    pixels = np.random.default_rng(0).integers(0, 256, (len(unique), IMAGE, IMAGE, 3),
+                                               dtype=np.uint8)
+    ImageStore(pixels, row_to_img).write_cache(
+        ImageStore.cache_path(path, "test", IMAGE), paths)
+    return path, pixels
 
 
 def _write_train_split(tmp):
@@ -2113,6 +2163,329 @@ def _run_all_phase(dev, card, zero_counts, counted):
     return launches
 
 
+def _serving_rates(fns, batches):
+    """forecasts/s of each serving callable over ``batches`` (numpy in and
+    out, copies included) by CUDA events, in turns (a, b, c, c, b, a).
+    Returns ``{name: [rate, rate]}``."""
+    names = list(fns)
+    rates = {n: [] for n in names}
+    for name in names + names[::-1]:
+        fns[name](batches[0])  # warm-up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for hb in batches:
+            fns[name](hb)
+        end.record()
+        torch.cuda.synchronize()
+        rows = len(batches) * len(batches[0]["mask"])
+        rates[name].append(rows / (start.elapsed_time(end) / 1e3))
+    return rates
+
+
+def _spawn_server(root, artifact, dev, grace_s):
+    """``cli.serve --artifact ... --http 0`` as a subprocess on the card;
+    returns ``(process, queue of its output lines, None at the end)``."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "visuelle2_tpu_torch.cli.serve", "--artifact", artifact,
+         "--http", "0", "--device", dev.type, "--drain_grace_s", str(grace_s)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line.rstrip("\n"))
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return proc, lines
+
+
+def _server_port(lines, seen):
+    """The port the subprocess serves on, from its ``serving on :PORT``
+    line; every line read goes into ``seen``."""
+    deadline = time.monotonic() + SERVE_START_S
+    while time.monotonic() < deadline:
+        try:
+            line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+        except queue.Empty:
+            break
+        if line is None:
+            break
+        seen.append(line)
+        if line.startswith("serving on :"):
+            return int(line.split(":")[1].split()[0])
+    raise RuntimeError(f"artifact_serve: the server did not start: {seen[-20:]}")
+
+
+def _artifact_serve_phase(dev, card, zero_counts, counted):
+    """Phase artifact_serve: a full-width gated_v4 checkpoint exported into
+    artifacts, loaded without it, scored, served over HTTP by a subprocess
+    that drains on SIGTERM, and a pretrained backbone spliced in (see the
+    module docstring).  Returns the launches of the served path's run."""
+    import http.client
+    import signal
+
+    from visuelle2_tpu_torch.cli import export as export_cli
+    from visuelle2_tpu_torch.cli import forecast_transformer, serve, train_transformer
+    from visuelle2_tpu_torch.convert import to_jax_variables
+    from visuelle2_tpu_torch.data.pipeline import load_label_dicts, load_norm_scalar
+    from visuelle2_tpu_torch.eval.client import ForecastClient
+    from visuelle2_tpu_torch.eval.export import (
+        export_forecaster,
+        load_forecaster,
+        make_forecaster,
+        quantize_int8,
+    )
+    from visuelle2_tpu_torch.models import VocabSizes, build
+    from visuelle2_tpu_torch.models.pretrained import (
+        flatten_variables,
+        load_backbone_npz,
+        save_backbone_npz,
+        splice_backbone,
+    )
+    from visuelle2_tpu_torch.models.registry import init_parameters
+    from visuelle2_tpu_torch.models.resnet import STAGE_BLOCKS, ResNetBackbone
+    from visuelle2_tpu_torch.train.checkpoint import CheckpointManager
+    from visuelle2_tpu_torch.train.hparams import save_hparams
+    from visuelle2_tpu_torch.train.loop import TrainConfig, Trainer
+
+    kernel = counted["fused_gated_residual"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    build_dir = os.path.join(root, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    out, checks, t_phase = {}, {}, time.perf_counter()
+    proc = None
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path, _ = _write_cli_split(os.path.join(tmp, "d"))
+        vocab = VocabSizes.from_dicts(*load_label_dicts(path))
+        # The checkpoint: seeded full-width weights saved as train_transformer
+        # saves them, with its manifest.
+        model = build("gated_v4", device=dev, generator=torch.Generator().manual_seed(21),
+                      vocab=vocab, image_arch=ARTIFACT_ARCH, image_dtype=torch.bfloat16)
+        ck = os.path.join(tmp, "ck")
+        CheckpointManager(ck, save_top_k=1).save(
+            0, Trainer(model, TrainConfig()).init_state(), {"val_wWAPE": 0.0})
+        targs = train_transformer.build_parser().parse_args(
+            ["--model", "gated_v4", "--image_arch", ARTIFACT_ARCH])
+        save_hparams(ck, train_transformer.hparams_of(targs, vocab, load_norm_scalar(path)))
+        model.eval()
+
+        # cli.export, float and int8, with no dataset but its label dicts.
+        arts = {q: os.path.join(tmp, f"gated_v4_{q}.v2torch") for q in ("float", "int8")}
+        for q, art in arts.items():
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                export_cli.main(["--model", "gated_v4", "--ckpt_path", ck, "--out", art,
+                                 "--dataset_path", path, "--bf16_backbone",
+                                 "--device", dev.type, "--image_arch", ARTIFACT_ARCH,
+                                 "--batch_size", str(B), "--image_size", str(IMAGE),
+                                 *(["--quantize", "int8"] if q == "int8" else [])])
+            out[f"export_{q}_s"] = time.perf_counter() - t
+            out[f"artifact_{q}_mb"] = os.path.getsize(art) / 1e6
+        # The serving subprocess loads the float artifact meanwhile.
+        proc, lines = _spawn_server(root, arts["float"], dev, grace_s=60)
+        started = []
+        try:
+            # forecast_transformer --ckpt_path --export on the split (the model
+            # path, dedup on: the artifact takes img_idx).
+            art_cli = os.path.join(tmp, "gated_v4_cli.v2torch")
+            split = ["--dataset_path", path, "--device", dev.type, "--image_size", str(IMAGE)]
+            with contextlib.redirect_stdout(io.StringIO()):
+                ft = forecast_transformer.main(split + [
+                    "--ckpt_path", ck, "--bf16_backbone", "--batch_size", str(B),
+                    "--export", art_cli])
+
+            # load_forecaster on the card: the served path of this phase.
+            zero_counts()
+            forwards = 0
+            loaded, headers = {}, {}
+            for q, art in arts.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                loaded[q], headers[q] = load_forecaster(art, device=dev)
+                torch.cuda.synchronize()
+                out[f"load_{q}_s"] = time.perf_counter() - t
+            out["quantized_arrays"] = headers["int8"]["quantized_arrays"]
+            batches = [export_cli.synth_batch(B, IMAGE, vocab, demand=True, output_len=12,
+                                              seed=700 + i) for i in range(ARTIFACT_TIMED_BATCHES)]
+            direct, _ = make_forecaster(model, batches[0], device=dev)
+            before = kernel.launches
+            got = {q: fn(batches[0]) for q, fn in loaded.items()}
+            forwards += 2
+            checks["2 fused_gated_residual launches a forward through load_forecaster's fn"] = \
+                kernel.launches - before == 4
+            want = direct(batches[0])
+            forwards += 1
+            scale = float(np.abs(want).max())
+            errs = {q: float(np.abs(got[q] - want).max()) / scale for q in got}
+            out["forecast_absmax"] = scale
+            out["max_err_share_of_absmax"] = errs
+            checks["float artifact = make_forecaster"] = errs["float"] <= ARTIFACT_FLOAT_TOL
+            checks["int8 artifact within 0.05 of max|forecast|"] = errs["int8"] <= ARTIFACT_INT8_TOL
+            checks["finite [128, 12]"] = all(g.shape == (B, 12) and np.isfinite(g).all()
+                                             for g in got.values())
+            # The int8 artifact's weights on the card against a CPU (numpy)
+            # dequantization of the checkpoint's int8 tree.
+            stored, scales = quantize_int8(flatten_variables(to_jax_variables(model)))
+            on_card = flatten_variables(to_jax_variables(loaded["int8"].model))
+            same = [np.array_equal((stored[k].astype(np.float32) * scales[k]).view(np.uint32),
+                                   on_card[k].view(np.uint32)) for k in scales]
+            checks["int8 weights on the card = a CPU dequantization, bit for bit"] = \
+                all(same) and len(same) == out["quantized_arrays"]
+            rates = _serving_rates({"make_forecaster": direct, "load_forecaster": loaded["float"],
+                                    "load_forecaster_int8": loaded["int8"]}, batches)
+            forwards += 2 * 3 * (ARTIFACT_TIMED_BATCHES + 1)
+            out["forecasts_per_s"] = rates
+            out["timing"] = (f"CUDA events over {ARTIFACT_TIMED_BATCHES} distinct batches of "
+                             f"{B} through each callable (numpy in and out, copies included), "
+                             "after one warm-up call; in turns a, b, c, c, b, a")
+            # cli.serve --artifact on the split: the forecast CLI's metrics.
+            with contextlib.redirect_stdout(io.StringIO()):
+                sv = serve.main(split + ["--artifact", art_cli])
+            forwards += -(-CLI_ROWS // B)
+            launches = {n: w.launches for n, w in counted.items()}
+            checks["2 launches a forward on the served path"] = launches == {
+                n: (2 * forwards if n == "fused_gated_residual" else 0) for n in counted}
+            rel = {m: abs(sv[m] - getattr(ft, m)) / abs(getattr(ft, m)) for m in ("wape", "mae")}
+            out["cli"] = {"forecast_transformer": {"wape": ft.wape, "mae": ft.mae},
+                          "serve": {"wape": sv["wape"], "mae": sv["mae"],
+                                    "forecasts_per_s": sv["rows"] / sv["seconds"]},
+                          "rel_diff": rel}
+            checks["cli.serve = forecast_transformer --ckpt_path"] = \
+                max(rel.values()) <= ARTIFACT_METRIC_RTOL
+
+            # A small Demand artifact: fused_additive_attention through
+            # load_forecaster's fn, 3 launches a decode step.
+            small = build("cross_attn_rnn_demand", device=dev,
+                          generator=torch.Generator().manual_seed(22), vocab=vocab,
+                          **ARTIFACT_DEMAND_DIMS)
+            demand_batch = export_cli.synth_batch(B, ARTIFACT_DEMAND_IMAGE, vocab, demand=True,
+                                                  output_len=12, seed=720)
+            demand_art = os.path.join(tmp, "demand.v2torch")
+            export_forecaster(small, demand_batch, demand_art)
+            demand_fn, _ = load_forecaster(demand_art, device=dev)
+            zero_counts()
+            got_demand = demand_fn(demand_batch)
+            demand_launches = {n: w.launches for n, w in counted.items()}
+            want_demand, _ = make_forecaster(small, demand_batch, device=dev)
+            want_demand = want_demand(demand_batch)
+            out["demand"] = {"dims": ARTIFACT_DEMAND_DIMS, "image": ARTIFACT_DEMAND_IMAGE,
+                             "launches": demand_launches,
+                             "max_err_share_of_absmax": float(
+                                 np.abs(got_demand - want_demand).max()
+                                 / np.abs(want_demand).max())}
+            checks["Demand artifact: 36 additive launches a forward"] = demand_launches == {
+                n: (36 if n == "fused_additive_attention" else 0) for n in counted}
+            checks["Demand artifact = make_forecaster"] = \
+                out["demand"]["max_err_share_of_absmax"] <= ARTIFACT_FLOAT_TOL
+            launches = {n: launches[n] + demand_launches[n] for n in counted}
+
+            # HTTP: six concurrent requests through the port's client.
+            port = _server_port(lines, started)
+            client = ForecastClient(f"http://127.0.0.1:{port}", timeout=300)
+            sizes = (1, 2, 3, 1, 2, 3)
+            requests = [export_cli.synth_batch(n, IMAGE, vocab, demand=True, output_len=12,
+                                               seed=800 + i) for i, n in enumerate(sizes)]
+            replies = [None] * len(sizes)
+            go = threading.Barrier(len(sizes))
+
+            def post(i):
+                go.wait(timeout=60)
+                replies[i] = client.forecast(requests[i])
+
+            threads = [threading.Thread(target=post, args=(i,)) for i in range(len(sizes))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            health = client.health()
+            def rel_err(req, reply):
+                if reply is None or reply.shape != (len(req["mask"]), 12):
+                    return float("inf")
+                with torch.inference_mode():
+                    d = model(_to_device(req, dev))[0].float().cpu().numpy()
+                return float(np.abs(reply - d).max() / max(1.0, np.abs(d).max()))
+
+            serve_errs = [rel_err(req, reply) for req, reply in zip(requests, replies)]
+            out["http"] = {"requests": health["requests"], "dispatches": health["dispatches"],
+                           "max_rel_err_vs_direct": max(serve_errs), "rtol": SERVE_RTOL,
+                           "server_start": started[-2:]}
+            checks["HTTP answers within SERVE_RTOL"] = max(serve_errs) <= SERVE_RTOL
+            checks["HTTP requests counted"] = health["requests"] == len(sizes)
+            checks["HTTP coalesced"] = health["dispatches"] < health["requests"]
+
+            # A SIGTERM while a request is in flight: half its body sent, the
+            # handler waiting for the rest.
+            buf = io.BytesIO()
+            np.savez(buf, **requests[2])
+            body = buf.getvalue()
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            conn.putrequest("POST", "/forecast")
+            conn.putheader("Content-Length", str(len(body)))
+            conn.endheaders()
+            conn.send(body[: len(body) // 2])
+            deadline = time.monotonic() + 60
+            while client.health()["inflight"] < 1 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGTERM)
+            time.sleep(1.0)
+            try:
+                client.health()
+                refused = False
+            except OSError:
+                refused = True
+            conn.send(body[len(body) // 2:])
+            resp = conn.getresponse()
+            drained = np.load(io.BytesIO(resp.read()))["forecast"] if resp.status == 200 else None
+            code = proc.wait(timeout=120)
+            tail = []
+            while not lines.empty():
+                line = lines.get()
+                if line is not None:
+                    tail.append(line)
+            out["sigterm"] = {"in_flight_status": resp.status, "exit": code,
+                              "new_connection_refused": refused, "tail": tail[-2:]}
+            out["sigterm"]["in_flight_rel_err_vs_direct"] = rel_err(requests[2], drained)
+            checks["SIGTERM: the in-flight request answered"] = \
+                out["sigterm"]["in_flight_rel_err_vs_direct"] <= SERVE_RTOL
+            checks["SIGTERM: no new connection"] = refused
+            checks["SIGTERM: exit 143"] = code == 143
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+
+        # The pretrained splice: a seeded ResNet-101 written by the port's
+        # codec, spliced into the checkpoint's model on the card.
+        bb = ResNetBackbone(STAGE_BLOCKS[ARTIFACT_ARCH])
+        init_parameters(bb, torch.Generator().manual_seed(77))
+        npz = os.path.join(tmp, "resnet101.npz")
+        t = time.perf_counter()
+        save_backbone_npz(to_jax_variables(bb), npz)
+        out["npz_write_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        splice_backbone(model, load_backbone_npz(npz))
+        torch.cuda.synchronize()
+        out["splice_s"] = time.perf_counter() - t
+        want_bb = flatten_variables(load_backbone_npz(npz))
+        have_bb = flatten_variables(to_jax_variables(model.image_encoder.backbone))
+        checks["spliced backbone = the npz"] = want_bb.keys() == have_bb.keys() and all(
+            np.array_equal(want_bb[k], have_bb[k]) for k in want_bb)
+        after = direct(batches[0])
+        checks["spliced forecasts finite and changed"] = bool(np.isfinite(after).all()) and \
+            not np.allclose(after, want)
+    out["phase_s"] = time.perf_counter() - t_phase
+    _emit({"phase": "artifact_serve", **card, "model": "gated_v4", "batch": B, "image": IMAGE,
+           "bf16_backbone": True, "float_tol": ARTIFACT_FLOAT_TOL,
+           "int8_tol": ARTIFACT_INT8_TOL, "metric_rtol": ARTIFACT_METRIC_RTOL,
+           "launches": launches, "forwards": forwards, **out,
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"artifact_serve: {name}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs on the GPU only")
@@ -2683,6 +3056,8 @@ def main():
                                            gcd_block_mask)
     _train_parity_phase(dev, card, kernel)
     train_launches = _train_phase(dev, card, zero_counts, counted)
+    # 16e'. serving from an artifact: export, load, score, HTTP, SIGTERM, splice
+    artifact_launches = _artifact_serve_phase(dev, card, zero_counts, counted)
 
     # 16f.–16h. CrossAttnRNN training: the two kernels under autograd, card vs
     # CPU, full-width Demand -------------------------------------------------------
@@ -2937,6 +3312,7 @@ def main():
         # path the row has always named; the forecast CLIs' scoring runs too.
         row["launches_forecast_cli"] = cli_launches[row["name"]]
         row["launches_run_all"] = run_all_launches[row["name"]]
+        row["launches_artifact_serve"] = artifact_launches[row["name"]]
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

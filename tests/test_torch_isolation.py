@@ -184,6 +184,8 @@ def test_importing_the_port_loads_no_jax():
         "import visuelle2_tpu_torch.train.optim, visuelle2_tpu_torch.train.loop\n"
         "import visuelle2_tpu_torch.train.checkpoint, visuelle2_tpu_torch.train.hparams\n"
         "import visuelle2_tpu_torch.utils.tracing\n"
+        "import visuelle2_tpu_torch.models.pretrained, visuelle2_tpu_torch.eval.client\n"
+        "import visuelle2_tpu_torch.cli.export, visuelle2_tpu_torch.cli.serve\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(n for n in new if n.split('.')[0] in %r)\n"
         "assert 'jax' not in sys.modules and not bad, bad\n"
@@ -193,8 +195,8 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
-def test_entry_points_need_cuda_unless_asked(monkeypatch):
-    from visuelle2_tpu_torch.eval.export import make_forecaster
+def test_entry_points_need_cuda_unless_asked(monkeypatch, tmp_path):
+    from visuelle2_tpu_torch.eval.export import export_forecaster, load_forecaster, make_forecaster
     from visuelle2_tpu_torch.models import build
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -205,6 +207,29 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch):
     assert next(model.parameters()).device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_forecaster(model, {"ts": torch.zeros(2, 12).numpy()})
+    path = str(tmp_path / "m.v2torch")
+    export_forecaster(model, {"ts": torch.zeros(2, 12).numpy()}, path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_forecaster(path)
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("serve", ["--artifact", "m.v2torch"]),
+    ("export", ["--model", "gated_v4", "--ckpt_path", "ck", "--out", "m.v2torch",
+                "--vocab", "5,6,5"])])
+def test_serve_and_export_clis_need_cuda_unless_asked(cli, argv, tmp_path):
+    """``python -m visuelle2_tpu_torch.cli.serve`` / ``.export`` raise without
+    a card (``--device`` is ``cuda`` by default) and write no file."""
+    code = ("import sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "import runpy\n"
+            f"sys.argv = ['{cli}', *{argv!r}]\n"
+            f"runpy.run_module('visuelle2_tpu_torch.cli.{cli}', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr, out.stderr[-2000:]
+    assert list(tmp_path.iterdir()) == []
 
 
 @pytest.mark.parametrize("module", ["roofline", "convfloor_v2", "convfloor", "gemm_split",

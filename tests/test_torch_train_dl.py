@@ -519,10 +519,12 @@ def test_train_dl_writes_the_jax_manifest(name, dataset, tmp_path, monkeypatch):
     assert port == json.loads(json.dumps(written[0])) and port["model"] == name
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--pretrained_backbone", "x.npz"], "item 13"), (["--dedup_images", "1"], "item 11")])
-def test_train_dl_flags_not_ported_yet_raise(dataset, tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("flags,error,match", [
+    # Ported: a backbone file that is not there is the error now.
+    (["--pretrained_backbone", "x.npz"], FileNotFoundError, "x.npz"),
+    (["--dedup_images", "1"], NotImplementedError, "item 11")])
+def test_train_dl_flags_not_ported_yet_raise(dataset, tmp_path, flags, error, match):
+    with pytest.raises(error, match=match):
         train_dl.main(["--dataset_path", dataset, *SMALL, "--demand", "1", "--epochs", "1",
                        "--ckpt_dir", str(tmp_path / "ck"), *flags])
 

@@ -25,9 +25,13 @@ trained checkpoint), training the CrossAttnRNN family (``cli.train_dl``),
 the VISUELLE-1 GTM (``gtm_v1``), the statistical baselines (``oracle``,
 ``ops.stats``, ``cli.forecast_stat``), the whole task list
 (``cli.run_all``) and the legacy InceptionV3 blocks (``models.inception``,
-``models.legacy``): all 11 registry models.  Entry points put the model on ``cuda`` unless the
-caller passes ``device="cpu"`` (``_device.resolve_device``, ``--device`` on
-the CLIs).
+``models.legacy``): all 11 registry models; and serving from an artifact
+(``eval.export.export_forecaster`` / ``load_forecaster`` with int8 weight
+storage, ``cli.export``, ``cli.serve``, ``eval.server.serve_forever``,
+``eval.client``) and the pretrained-backbone splice (``models.pretrained``,
+``--pretrained_backbone``).  Entry points put the model on ``cuda`` unless
+the caller passes ``device="cpu"`` (``_device.resolve_device``,
+``--device`` on the CLIs).
 
 Numeric traps the tests guard (each is restated where it lives):
 

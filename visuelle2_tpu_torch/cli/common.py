@@ -1,8 +1,9 @@
 """Shared CLI plumbing, counterpart of ``visuelle2_tpu/cli/common.py``: the
-common flags, dataset and loader construction, the ``--quantize`` gate, the
-train CLIs' flags (``add_train_args``) and body (``run_training``:
-``--resume_from``, the checkpoints, the manifest, the exit after a SIGTERM)
-and the JSONL metrics log.
+common flags, dataset and loader construction, the ``--quantize`` gate and
+the forecast CLIs' ``--export``, the train CLIs' flags (``add_train_args``)
+and body (``run_training``: ``--pretrained_backbone``, ``--resume_from``,
+the checkpoints, the manifest, the exit after a SIGTERM) and the JSONL
+metrics log.
 
 The flags are the JAX CLIs' own, plus ``--device`` (default ``cuda``; the
 tests pass ``cpu``): the CLI form of the port's ``device=`` rule.
@@ -28,15 +29,11 @@ from visuelle2_tpu_torch.data.pipeline import (
     load_norm_scalar,
     load_visuelle2,
 )
+from visuelle2_tpu_torch.eval.export import export_forecaster
 from visuelle2_tpu_torch.eval.forecast import dump_attention, score_split
 from visuelle2_tpu_torch.models.base import VocabSizes
 from visuelle2_tpu_torch.models.gtm_v1 import TextFeaturizer
-
-# Flags the forecast CLIs accept but whose work is ported later: a
-# non-default value raises, naming where it lands.
-LATER_FLAGS = {
-    "export": "ROADMAP Queue 1 item 13 (serving: the artifact file)",
-}
+from visuelle2_tpu_torch.models.pretrained import load_backbone_npz, splice_backbone
 
 
 def add_common_args(p: argparse.ArgumentParser):
@@ -50,8 +47,9 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--bf16_backbone", action="store_true",
                    help="run the image backbone in bfloat16")
     p.add_argument("--pretrained_backbone", type=str, default="",
-                   help=".npz of a converted pretrained backbone, spliced in at "
-                        "training time (not read when forecasting)")
+                   help=".npz of a converted pretrained backbone "
+                        "(scripts/convert_pretrained.py), spliced into every image "
+                        "encoder's backbone before training (not read when forecasting)")
     p.add_argument("--gpu_num", type=int, default=0,
                    help="the CUDA device index: --device cuda runs on cuda:N")
     p.add_argument("--device", type=str, default="cuda",
@@ -77,7 +75,8 @@ def add_forecast_args(p, *, dump_help: str):
                    help="checkpoint to score: a trainer's directory or one of its "
                         "epoch directories")
     p.add_argument("--export", type=str, default="",
-                   help="write a serving artifact (ported with serving)")
+                   help="after scoring, write a serving artifact of the model "
+                        "(eval/export.py) with the first test batch's signature")
     # w8a8 calibration (read once --quantize w8a8 is ported)
     p.add_argument("--calib_batches", type=int, default=2,
                    help="batches used to calibrate w8a8 activation scales")
@@ -85,8 +84,9 @@ def add_forecast_args(p, *, dump_help: str):
                    help="split the calibration batches come from")
     p.add_argument("--quantize", type=str, default="",
                    choices=["", "none", "int8", "w8a8", "auto"],
-                   help="'' or none: the float path; int8, w8a8 and auto are "
-                        "ported with serving and w8a8")
+                   help="'' or none: float weights; int8: the --export "
+                        "artifact stores weight-only per-channel int8 (~4x smaller); "
+                        "w8a8 and auto are ported with the int8 backbone")
     p.add_argument("--dump_attention", type=str, default="", help=dump_help)
     p.add_argument("--metrics_out", type=str, default="",
                    help="also write WAPE/MAE/throughput/GFLOPs as JSON")
@@ -106,28 +106,35 @@ def resolve_cli_device(args) -> torch.device:
     return torch.device(f"cuda:{args.gpu_num}")
 
 
-def check_later_flags(args) -> None:
-    """Raise for a forecast flag whose work is not ported yet."""
-    for flag, where in LATER_FLAGS.items():
-        if getattr(args, flag, ""):
-            raise NotImplementedError(f"--{flag} is ported in {where}")
-    resolve_quantize(args)
-
-
 def resolve_quantize(args) -> str:
-    """The ``--quantize`` mode: ``""`` (also for ``none``); every other mode
-    raises until its port lands."""
+    """The ``--quantize`` mode: ``""`` (also for ``none``) or ``int8`` (the
+    artifact's weight storage); ``w8a8`` and ``auto`` raise until the int8
+    backbone lands."""
     mode = getattr(args, "quantize", "") or ""
     if mode in ("", "none"):
         return ""
+    if mode == "int8":
+        return mode
     raise NotImplementedError(
-        f"--quantize {mode} is ported in ROADMAP Queue 1 items 13 (int8 artifact "
-        "storage) and 14 (the w8a8 backbone)")
+        f"--quantize {mode} is ported in ROADMAP Queue 1 item 14 (the w8a8 backbone, "
+        "and auto's crossover measured again on the card)")
+
+
+def export_scored_model(args, model, loader, provenance: dict) -> None:
+    """``--export``: write ``model`` as a serving artifact with the first
+    batch of ``loader`` as its signature, int8 weights under ``--quantize
+    int8``."""
+    if not getattr(args, "export", ""):
+        return
+    example = {k: v.numpy() for k, v in next(iter(loader)).items()}
+    size = export_forecaster(model, example, args.export, quantize=resolve_quantize(args),
+                             extra_header=provenance)
+    print(f"Exported serving artifact: {args.export} ({size / 1e6:.1f} MB)")
 
 
 def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test"),
                   text_features: bool = False, dedup_eval_images: bool = False,
-                  dedup_train_images: bool = False,
+                  dedup_train_images: bool = False, dedup_image_slots: int = 0,
                   pin_memory: bool = False) -> Tuple[dict, VocabSizes, float]:
     """Returns ``({split: BatchLoader}, vocab, norm_scalar)``.
 
@@ -140,7 +147,8 @@ def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test
     FLOPs divided by the photo duplication factor); ``dedup_train_images``
     asks the train loader for the grouped sampler, which raises until
     ROADMAP Queue 1 item 11 (``--dedup_images 1`` on a train CLI).
-    ``pin_memory`` pins every batch (a CUDA target).
+    ``dedup_image_slots`` forces the slot count (an artifact's signature
+    fixed it at export).  ``pin_memory`` pins every batch (a CUDA target).
     """
     cat_dict, col_dict, fab_dict = load_label_dicts(args.dataset_path)
     vocab = VocabSizes.from_dicts(cat_dict, col_dict, fab_dict)
@@ -163,7 +171,7 @@ def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test
         loaders[split] = BatchLoader(
             arrays, store, args.batch_size, shuffle=(split == "train"), seed=args.seed,
             drop_remainder=(split == "train"), extras=extras, dedup_images=dedup,
-            pin_memory=pin_memory)
+            image_slots=dedup_image_slots if dedup else 0, pin_memory=pin_memory)
         if featurizer is not None:
             loaders[split].text_fingerprint = featurizer.fingerprint
     return loaders, vocab, norm_scalar
@@ -247,19 +255,29 @@ def run_training(args, model, loaders, hparams: dict, *, norm_scalar: float,
     return ckpt.best_model_path
 
 
+def apply_pretrained_backbone(model, args):
+    """``--pretrained_backbone``: splice the converted backbone ``.npz`` into
+    every image encoder's ``backbone`` of ``model`` (in place; the float32
+    masters take its values); no-op without the flag.  Returns ``model``."""
+    path = getattr(args, "pretrained_backbone", "")
+    if not path:
+        return model
+    splice_backbone(model, load_backbone_npz(path))
+    print(f"loaded pretrained backbone from {path}")
+    return model
+
+
 def prepare_initial_state(trainer, loaders, args):
-    """The train CLIs' prologue: a fresh state, or the one ``--resume_from
-    DIR|auto`` restores.  Returns ``(state, start_epoch, skip_steps)``;
-    ``skip_steps`` > 0 means the state already holds that many updates of
-    ``start_epoch`` (a mid-epoch save).  ``auto`` resumes from ``--ckpt_dir``
-    when it holds a checkpoint and starts fresh when it does not, so the
-    same command can be rerun after a preemption.  ``--pretrained_backbone``
-    raises until its port lands."""
+    """The train CLIs' prologue: ``--pretrained_backbone`` spliced into the
+    model, then a fresh state, or the one ``--resume_from DIR|auto``
+    restores.  Returns ``(state, start_epoch, skip_steps)``; ``skip_steps``
+    > 0 means the state already holds that many updates of ``start_epoch``
+    (a mid-epoch save).  ``auto`` resumes from ``--ckpt_dir`` when it holds a
+    checkpoint and starts fresh when it does not, so the same command can be
+    rerun after a preemption."""
     from visuelle2_tpu_torch.train.checkpoint import CheckpointManager
 
-    if getattr(args, "pretrained_backbone", ""):
-        raise NotImplementedError("--pretrained_backbone is ported in ROADMAP Queue 1 item 13 "
-                                  "(models/pretrained.py)")
+    apply_pretrained_backbone(trainer.model, args)
     state = trainer.init_state()
     if not getattr(args, "resume_from", ""):
         return state, 0, 0

@@ -12,8 +12,11 @@ its epoch directories; the best epoch by default) restores the parameters
 and BatchNorm statistics; the structural flags not passed are filled from
 its ``hparams.json``, a conflicting one is an error, and the dataset is
 checked against the manifest.  Without it the CLI scores a model drawn from
-``--seed``.  ``--export`` and a ``--quantize`` mode raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``--seed``.  ``--export PATH`` then writes the model as a serving artifact
+(``eval/export.py``; ``--quantize int8`` stores int8 weights) with
+``provenance`` ``{"model": <class name>}``; ``cli/serve.py`` scores or serves
+it.  ``--quantize w8a8|auto`` raise ``NotImplementedError`` (ROADMAP Queue 1
+item 14).
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from visuelle2_tpu_torch.cli.common import (
     add_common_args,
     add_forecast_args,
     build_loaders,
-    check_later_flags,
+    export_scored_model,
     resolve_cli_device,
+    resolve_quantize,
     score_test_split,
 )
 from visuelle2_tpu_torch.models import build
@@ -86,7 +90,7 @@ def run(args, parser=None, argv=None):
         ckpt = CheckpointManager(ckpt_root, read_only=True)
         hp = apply_ckpt_hparams(args, parser or build_parser(), DL_STRUCTURAL, argv)
     print(args)
-    check_later_flags(args)
+    resolve_quantize(args)  # w8a8 and auto raise before any work
     demand = bool(args.new_product)
     output_len = output_len_of(args, hp)
     device = resolve_cli_device(args)
@@ -102,6 +106,7 @@ def run(args, parser=None, argv=None):
               f"{ckpt.best_step() if ckpt_step is None else ckpt_step}")
     result = score_test_split(args, model, loaders["test"], norm_scalar)
     print(f"GFLOPS: {result.gflops_per_sample}")
+    export_scored_model(args, model, loaders["test"], {"model": type(model).__name__})
     return result
 
 

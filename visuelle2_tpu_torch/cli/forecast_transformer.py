@@ -16,8 +16,11 @@ against the manifest; for ``gtm_v1`` (Demand only, on the ingest-time text
 features) a ``text_fingerprint`` other than this host's featurizer's is an
 error.  Without it the CLI scores a model drawn from ``--seed``, as the JAX
 CLI does.  ``--dump_attention`` writes gtm_v1's decoder attention weights.
-``--export`` and a ``--quantize`` mode raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+``--export PATH`` then writes the model as a serving artifact
+(``eval/export.py``; ``--quantize int8`` stores int8 weights) with
+``provenance`` ``{"model", "text_fingerprint" (gtm_v1)}``; ``cli/serve.py``
+scores or serves it.  ``--quantize w8a8|auto`` raise ``NotImplementedError``
+(ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ from visuelle2_tpu_torch.cli.common import (
     add_forecast_args,
     add_train_args,
     build_loaders,
-    check_later_flags,
+    export_scored_model,
     resolve_cli_device,
+    resolve_quantize,
     score_test_split,
 )
 from visuelle2_tpu_torch.models import build
@@ -81,7 +85,7 @@ def run(args, parser=None, argv=None):
         hp = apply_ckpt_hparams(args, parser or build_parser(), TRANSFORMER_STRUCTURAL,
                                 argv)
     print(args)
-    check_later_flags(args)
+    resolve_quantize(args)  # w8a8 and auto raise before any work
     demand = bool(args.demand)
     if args.model == "gtm_v1" and not demand:
         raise SystemExit("gtm_v1 is demand-only; use --demand 1")
@@ -98,7 +102,12 @@ def run(args, parser=None, argv=None):
         ckpt.restore_for_eval(model, ckpt_step)
         print(f"restored {ckpt_root} epoch "
               f"{ckpt.best_step() if ckpt_step is None else ckpt_step}")
-    return score_test_split(args, model, loaders["test"], norm_scalar)
+    result = score_test_split(args, model, loaders["test"], norm_scalar)
+    fingerprint = getattr(loaders["test"], "text_fingerprint", None)
+    export_scored_model(args, model, loaders["test"], {
+        "model": args.model,
+        **({"text_fingerprint": fingerprint} if args.model == "gtm_v1" else {})})
+    return result
 
 
 def add_model_args(p, default_model="gtm"):

@@ -17,8 +17,9 @@ JAX trainer's keys: ``forecast_dl --ckpt_path`` reads them) and
 it saves at the next step boundary and exits 143; the same command with
 ``--resume_from auto`` continues at the next step.
 
-``--pretrained_backbone`` (ROADMAP Queue 1 item 13) and ``--dedup_images 1``
-(the grouped sampler, item 11) raise.
+``--pretrained_backbone X.npz`` splices a converted backbone
+(``models/pretrained.py``) into the model before the first step.
+``--dedup_images 1`` (the grouped sampler, ROADMAP Queue 1 item 11) raises.
 """
 
 from __future__ import annotations

@@ -17,9 +17,10 @@ command with ``--resume_from auto`` continues at the next step.
 
 ``gtm_v1`` trains on Demand only (``--demand 1``), on the ingest-time text
 features (``cli/common.py::build_loaders``), and its manifest records their
-featurizer's ``text_fingerprint``.  ``--pretrained_backbone`` (ROADMAP
-Queue 1 item 13) and ``--dedup_images 1`` (the grouped sampler, item 11)
-raise.
+featurizer's ``text_fingerprint``.  ``--pretrained_backbone X.npz`` splices
+a converted backbone (``models/pretrained.py``) into the model before the
+first step.  ``--dedup_images 1`` (the grouped sampler, ROADMAP Queue 1 item
+11) raises.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Minimal HTTP inference server — stdlib and numpy only, counterpart of
 ``visuelle2_tpu/eval/server.py`` (``MicroBatcher``, ``make_server``,
-``drain_and_close``).  The code is framework-free, so it is the JAX package's
-verbatim; ``forecast_fn`` and ``header`` come from
-``visuelle2_tpu_torch.eval.export.make_forecaster``.
+``drain_and_close``, ``serve_forever``).  The code is framework-free, so it
+is the JAX package's verbatim; ``forecast_fn`` and ``header`` come from
+``visuelle2_tpu_torch.eval.export.make_forecaster`` or ``load_forecaster``.
 
 Protocol (npz in / npz out):
 
@@ -19,14 +19,15 @@ K requests' rows into one padded batch is a ~K× throughput win.  An idle
 device dispatches immediately with whatever is queued; while a dispatch is in
 flight, new arrivals queue and the next flush packs them FIFO up to the row
 capacity.  Requests carrying ``img_idx`` are served one per dispatch.
-The signal-driven ``serve_forever`` arrives with the serving CLI slice
-(ROADMAP Queue 1 item 13).
+``serve_forever`` serves until SIGTERM or SIGINT and drains in-flight
+requests before it returns (exit 143 after a SIGTERM).
 """
 
 from __future__ import annotations
 
 import io
 import json
+import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -373,3 +374,40 @@ def drain_and_close(srv, grace_s: float = 10.0) -> None:
         time.sleep(0.02)
     if srv.batcher is not None:
         srv.batcher.close()
+
+
+def serve_forever(forecast_fn, header, port: int, grace_s: float = 10.0):
+    """Serve until SIGTERM/SIGINT, then drain and exit.
+
+    A cloud machine may be preempted, so the server follows the trainer's
+    ``PreemptionWatch`` convention (``train/loop.py``): on SIGTERM it stops
+    accepting at once, gives in-flight requests ``grace_s`` seconds to
+    complete, and exits 143 so orchestrators tell a drained preemption from
+    a crash.  A SIGINT drains the same way and returns.
+    """
+    srv = make_server(forecast_fn, header, port)
+    got_sig = []
+
+    def _on_sigterm(signum, frame):
+        got_sig.append(signum)
+        # shutdown() blocks until the serve loop (this thread) exits, so it
+        # runs off this thread.
+        threading.Thread(target=srv.shutdown, daemon=True).start()
+
+    try:
+        prev = signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:  # not the main thread (embedded use): no handler
+        prev = None
+    print(f"serving on :{srv.server_address[1]} "
+          f"(POST /forecast, GET /health)", flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if prev is not None:
+            signal.signal(signal.SIGTERM, prev)
+        drain_and_close(srv, grace_s)
+    if got_sig:
+        print("SIGTERM: drained in-flight requests, exiting 143", flush=True)
+        raise SystemExit(143)

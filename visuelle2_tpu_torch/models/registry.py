@@ -98,7 +98,8 @@ def build(name: str, *, device=None, generator: Optional[torch.Generator] = None
     """Build a registry model in eval mode on ``device``.
 
     ``generator`` (default: seeded with 0) draws the initial weights;
-    ``convert.load_jax_variables`` replaces them with a JAX model's.
+    ``convert.load_jax_variables`` replaces them with a JAX model's.  The
+    model's ``build_spec`` holds ``name`` and the overrides.
     ``oracle`` takes ``method`` and ``use_teacher_forcing`` and has no
     weights.
     """
@@ -118,4 +119,7 @@ def build(name: str, *, device=None, generator: Optional[torch.Generator] = None
     for mod in model.modules():
         if isinstance(mod, (ImagePatchEncoder, ImagePooledEncoder, _FrozenImageTower)):
             mod.to(memory_format=torch.channels_last)
+    # What rebuilds this model: a serving artifact records it
+    # (eval/export.py).
+    model.build_spec = {"name": name, "overrides": dict(overrides)}
     return model.to(dev).eval()
