@@ -97,7 +97,8 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    against among 128, in bf16 and f32); forecasts/s beside phase 6 and
    16's forward-only rate, the scored forward's device busy time,
    the scoring pass's own rate on the host clock, GFLOPs per sample and
-   peak device memory;
+   peak device memory; the ``--dedup_images 0`` runs gather every batch's
+   images through the native prefetch engine, the dedup runs through none;
 16c. train_kernel — ``fused_gated_residual`` (B=128, D=32, C=128 and a
    ragged shape, both gate forms) and ``fused_gated_mha`` (gated_v2's
    shapes, dropout 0) under their autograd functions on the card (f32, TF32
@@ -243,16 +244,49 @@ list, each run at the place its number gives among those above:
    epochs (``hparams.json`` says ``text_fingerprint: hashed-crc32-v1``) and
    ``forecast_transformer.main --ckpt_path`` on the best epoch within 1e-4
    relative of its logged ``val_wWAPE``;
+16j. data_plane (after train) — on the train phases' split (1,024 train
+   and 1,000 test rows, 4 rows a photo): the full-width gated_v4 (bf16)
+   scoring the test split through ``score_split`` and training an epoch
+   through ``Trainer.train_step`` on the train loader's batches, each with
+   the native prefetch engine and with the numpy gather in turns (numpy,
+   engine, engine, numpy): the pass's forecasts/s and the step's ms on the
+   host clock, the same WAPE and MAE either way, the step's device busy ms
+   and idle share by the profiler; then the grouped sampler
+   (``--dedup_images 1``): its ``unique_image_slots``, an epoch's step ms,
+   and ``train_transformer.main --dedup_images 1`` for one epoch (a finite
+   loss, a best checkpoint);
+16k. w8a8 (after artifact_serve) — ``int8_conv`` (``csrc/int8_conv.cu``)
+   against its plain version at the main path's B=128 on each of
+   ResNet-101's 24 distinct conv launches at 299² (the codes and the
+   "float" epilogue's values exact), and each shape's µs beside its plain
+   version's, its bound and ``torch._int_mm`` on the 1x1 stride-1 GEMMs;
+   the full-width gated_v4 (bf16 backbone) calibrated on 2 batches
+   (``quantized_resnet.build_serving_path``) and served through
+   ``make_forecaster``: finite [128, 12] forecasts, exactly 104
+   ``int8_conv`` and 2 ``fused_gated_residual`` launches a forward; its
+   backbone on the card at 128 photos equal, on the first two, to the CPU
+   plain path prepared from the same calibration; the w8a8 and bf16
+   forwards in turns with CUDA events at image duplication 1, 4, 10, 32
+   and 128 (128 rows over 128, 32, 13, 4 and 1 photos), each with the
+   host's time to issue one forward onto an idle card: forecasts/s and the
+   largest duplication at which w8a8 was faster
+   (``W8A8_AUTO_MAX_DUPLICATION``'s source); then on the forecast CLIs'
+   split ``forecast_transformer --quantize w8a8 --export``, the artifact
+   through ``load_forecaster`` (104 launches a forward) and ``cli.serve
+   --artifact`` (the CLI's WAPE and MAE bits), and ``--quantize auto``'s
+   line;
 22. run_all — ``run_all.main`` on a small split under ``build/`` (64 train
    and 32 test rows, photos cached at 32², tiny backbone, 1 epoch, B=16):
    six results printed, each forecast from the checkpoint its training
    returned (spies on ``train_dl.run`` and ``forecast_dl.run``), each stat
    result equal to ``forecast_stat`` run alone.
 
-Then the ``kernels`` line (seven kernels; ``launches`` counts each row's
-own path, ``launches_forecast_cli`` the forecast CLIs' runs,
+Then the ``kernels`` line (the seven TPU kernels' ports and ``int8_conv``,
+which replaces the JAX engine's XLA convolution; ``launches`` counts each
+row's own path, ``launches_forecast_cli`` the forecast CLIs' runs,
 ``launches_run_all`` run_all's, ``launches_artifact_serve``
-artifact_serve's in-process forwards, rows 1, 3 and 4's ``launches_train`` a
+artifact_serve's in-process forwards, ``launches_w8a8_cli`` the w8a8
+phase's ``forecast_transformer --quantize w8a8`` run, rows 1, 3 and 4's ``launches_train`` a
 train step's forward and backward and an eval forward's, row 3's
 ``launches_legacy`` the legacy attention's), the
 ``nvidia-smi`` line and,
@@ -394,6 +428,14 @@ ARTIFACT_DEMAND_DIMS = dict(attention_dim=16, embedding_dim=16, hidden_dim=16,
 ARTIFACT_DEMAND_IMAGE = 64
 ARTIFACT_TIMED_BATCHES = 4    # distinct batches a timed window, four windows in turns
 SERVE_START_S = 300           # the serving subprocess's time to print its port
+
+W8A8_DUPLICATIONS = (1, 4, 10, 32, 128)   # 128 rows over 128, 32, 13, 4 and 1 photos
+W8A8_CHECK_BATCH = 2     # photos of the backbone's card-vs-CPU check (the CPU's float64)
+W8A8_TIMED_CALLS = 20    # per conv shape at B=128
+W8A8_TIMED_BATCHES = 4   # distinct batches a window, four windows in turns
+W8A8_CALIB_BATCHES = 2
+DATA_PLANE_TURNS = (False, True, True, False)  # native_prefetch, in turns
+DATA_PLANE_PROFILED_STEPS = 3  # a profiler window's train steps (its post-processing is slow)
 
 
 def _require(cond, msg):
@@ -590,7 +632,8 @@ def _forward_times(model, fn, host_batches, dev, seed, kernel_groups=None,
             "forward_device_ms_by_op": dict(by_op),
             "forward_top_kernels_ms_launches": by_kernel,
             "forward_flops": flops.get_total_flops(), "conv_flops": conv_flops,
-            "conv_tflops_per_s": conv_flops / 1e9 / all_ops["aten::cudnn_convolution"],
+            "conv_tflops_per_s": (conv_flops / 1e9 / all_ops["aten::cudnn_convolution"]
+                                  if "aten::cudnn_convolution" in all_ops else None),
             "serving_fn_ms_incl_copies": sorted(1e3 * t for t in fn_s),
             "max_memory_allocated_bytes": peak_bytes}
 
@@ -757,6 +800,7 @@ def _forecast_cli_phase(dev, card, zero_counts, counted, forward_rates, forward_
     ``counted`` names every kernel wrapper; ``forward_rates`` and
     ``forward_busy_ms`` are phases 6 and 16's forward-only forecasts/s and
     device busy ms a forward, by model."""
+    from visuelle2_tpu_torch import native
     from visuelle2_tpu_torch.cli import common, forecast_dl, forecast_transformer
     from visuelle2_tpu_torch.data.pipeline import load_label_dicts
     from visuelle2_tpu_torch.eval.forecast import to_device
@@ -775,13 +819,25 @@ def _forecast_cli_phase(dev, card, zero_counts, counted, forward_rates, forward_
         v4_argv = v4_f32 + ["--bf16_backbone"]
         dl_argv = ["--new_product", "1", "--bf16_backbone", *split]
 
+        engine = native.shared_engine()
+
         def run(label, cli, argv, model, per_forward):
             zero_counts()
             out = io.StringIO()
+            gathers = []
+            submit = engine.submit
+            engine.submit = lambda *a: gathers.append(1) or submit(*a)
             t = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                r = cli.main(argv)
+            try:
+                with contextlib.redirect_stdout(out):
+                    r = cli.main(argv)
+            finally:
+                del engine.submit
             wall = time.perf_counter() - t
+            # Without dedup every batch's images come through the engine;
+            # unique-image batches gather in numpy.
+            checks[f"{label}: prefetch engine"] = (len(gathers) > 0) == (
+                "--dedup_images" in argv)
             counts = {name: w.launches for name, w in counted.items()}
             launches[label] = counts
             expected = {name: per_forward.get(name, 0) * r.forwards for name in counted}
@@ -800,6 +856,7 @@ def _forecast_cli_phase(dev, card, zero_counts, counted, forward_rates, forward_
                 "one_pass": r.one_pass, "forwards": r.forwards,
                 "launches": counts, "launches_per_forward": {
                     k: v / r.forwards for k, v in counts.items() if v},
+                "prefetch_engine_gathers": len(gathers),
                 "cli_s": wall, "cli_tail": out.getvalue().strip().splitlines()[-3:]}
             if "--dedup_images" in argv and "--bf16_backbone" in argv:
                 # 128 photos a forward in bf16, as phase 6 runs: the share of
@@ -2486,6 +2543,387 @@ def _artifact_serve_phase(dev, card, zero_counts, counted):
     return launches
 
 
+def _int8_conv_inputs(shape, n, gen, dev):
+    """Seeded int8 conv inputs of a ``conv_launches`` shape at batch ``n``:
+    codes (signed for the stem, else post-ReLU), weights, per-channel m and
+    z that keep most outputs inside (0, 127), and an addend for
+    "requant_add"."""
+    from visuelle2_tpu_torch.ops.cuda import int8_conv as ic
+
+    h, w, cin, cout, k, stride, pad, epilogue = shape
+    x = torch.randint(-127 if cin == 3 else 0, 128, (n, h, w, cin), generator=gen,
+                      dtype=torch.int8)
+    wt = ic.pack_weight(torch.randint(-127, 128, (cout, cin, k, k), generator=gen,
+                                      dtype=torch.int8))
+    m = (torch.rand(cout, generator=gen) + 0.5) * (60.0 / ((k * k * cin) ** 0.5 * 70 * 73))
+    z = torch.rand(cout, generator=gen) * 40 - 10
+    ho = ic.out_size(h, k, stride, pad)
+    addend = (torch.rand(n, ho, ho, cout, generator=gen) * 60 - 30
+              if epilogue == "requant_add" else None)
+    args = [t.to(dev) for t in (x, wt, m, z)]
+    return args, dict(kernel=k, stride=stride, pad=pad, epilogue=epilogue,
+                      addend=None if addend is None else addend.to(dev))
+
+
+def _host_issue_ms(fn, batches):
+    """The median over ``batches`` of the host's time to issue ``fn(b)`` onto
+    an idle card (synchronized before each call, not after): near the call's
+    CUDA-event time when the host's launches, not the card, bound it."""
+    times = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(b)
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def _dedup_batch(d, seed):
+    """A B-row gated_v4 batch over ceil(B / d) photos (d = 1: no img_idx)."""
+    batch = _synthetic_batch(B, IMAGE, seed)
+    if d > 1:
+        n_img = -(-B // d)
+        batch["images"] = batch["images"][:n_img]
+        batch["img_idx"] = (np.arange(B) % n_img).astype(np.int32)
+    return batch
+
+
+def _w8a8_phase(dev, card, zero_counts, counted):
+    """Phase w8a8: the int8 backbone on the card (see the module docstring).
+    Returns the ``int8_conv`` row's numbers for the kernels line."""
+    import collections
+    import copy
+
+    from visuelle2_tpu_torch.cli import forecast_transformer, serve
+    from visuelle2_tpu_torch.data.images import normalize_images
+    from visuelle2_tpu_torch.eval.export import load_forecaster, make_forecaster
+    from visuelle2_tpu_torch.models import VocabSizes, build
+    from visuelle2_tpu_torch.models import quantized_resnet as qr
+    from visuelle2_tpu_torch.models.resnet import STAGE_BLOCKS
+    from visuelle2_tpu_torch.ops.cuda import int8_conv as ic
+    from visuelle2_tpu_torch.ops.cuda import roofline
+
+    conv, residual = counted["int8_conv"], counted["fused_gated_residual"]
+    t_phase = time.perf_counter()
+    out, checks = {}, {}
+    launches = qr.conv_launches(STAGE_BLOCKS["resnet101"], IMAGE)
+    per_forward = collections.Counter(c[1:] for c in launches)
+    checks["104 conv launches a ResNet-101 forward"] = len(launches) == 104
+
+    # The kernel against its plain version at the main path's batch (B=128)
+    # on every distinct shape: the same int8 codes (float sums in the
+    # downsample's epilogue); then each shape's times.
+    gen = torch.Generator().manual_seed(13)
+    errs, shapes = {}, {}
+    with torch.inference_mode():
+        for shape in sorted(per_forward):
+            h, w, cin, cout, k, stride, pad, epilogue = shape
+            args, kw = _int8_conv_inputs(shape, B, gen, dev)
+            got = ic.int8_conv(*args, **kw)
+            kernel_ms = _cuda_ms(lambda: ic.int8_conv(*args, **kw), W8A8_TIMED_CALLS)
+            want = ic.int8_conv_plain(*args, **kw)
+            plain_ms = _cuda_ms(lambda: ic.int8_conv_plain(*args, **kw), 1)
+            errs[str(shape)] = (got.float() - want.float()).abs().max().item()
+            checks[f"int8_conv {list(shape)} at B={B}: the plain version's values"] = \
+                got.dtype == want.dtype and torch.equal(got, want)
+            del got, want
+            n_bytes, ops = roofline.int8_conv_cost(B, h, w, cin, cout, k, stride, pad, epilogue)
+            b_ms, b_by = roofline.bound_ms(n_bytes, ops, "int8")
+            row = {"launches_per_forward": per_forward[shape], "kernel_us": 1e3 * kernel_ms,
+                   "plain_us": 1e3 * plain_ms, "bound_us": 1e3 * b_ms, "bound_by": b_by,
+                   "bytes": n_bytes, "ops": ops, "int_mm_us": None}
+            if k == 1 and stride == 1:
+                x2d = args[0].reshape(-1, cin)
+                wt = args[1][:, :cin].t().contiguous()
+                torch._int_mm(x2d, wt)
+                row["int_mm_us"] = 1e3 * _cuda_ms(lambda: torch._int_mm(x2d, wt),
+                                                  W8A8_TIMED_CALLS)
+            shapes[str(list(shape))] = row
+            del args, kw
+    max_err = max(errs.values())
+    torch.cuda.empty_cache()
+
+    def total(key, rows=None):
+        return sum(r[key] * r["launches_per_forward"] for r in (rows or shapes.values()))
+
+    one_by_one = [r for r in shapes.values() if r["int_mm_us"] is not None]
+    fwd_bytes, fwd_ops = total("bytes"), total("ops")
+    fwd_bound_ms, fwd_bound_by = roofline.bound_ms(fwd_bytes, fwd_ops, "int8")
+    out["per_forward"] = {
+        "kernel_ms": total("kernel_us") / 1e3, "plain_ms": total("plain_us") / 1e3,
+        "bound_ms": fwd_bound_ms, "bound_by": fwd_bound_by,
+        "sum_of_shape_bounds_ms": total("bound_us") / 1e3,
+        "kernel_ms_on_1x1_stride1": total("kernel_us", one_by_one) / 1e3,
+        "int_mm_ms_on_1x1_stride1": total("int_mm_us", one_by_one) / 1e3}
+
+    # The full-width gated_v4, calibrated on 2 batches, through the serving
+    # callable: the main path.
+    model = build("gated_v4", device=dev, generator=torch.Generator().manual_seed(31),
+                  vocab=VocabSizes(5, 6, 5, 126), image_dtype=torch.bfloat16,
+                  image_arch="resnet101").eval()
+    calib_batches = [_to_device(_synthetic_batch(B, IMAGE, seed=700 + i), dev)
+                     for i in range(W8A8_CALIB_BATCHES)]
+    t0 = time.perf_counter()
+    qmodel, calib = qr.build_serving_path(model, calib_batches)
+    out["calibrate_and_prepare_s"] = time.perf_counter() - t0
+    checks["calibration covers every scale"] = len(calib) == 2 + 3 * 33
+    host_batches = [_synthetic_batch(B, IMAGE, seed=710 + i) for i in range(N_FWD)]
+    fn, _ = make_forecaster(qmodel, host_batches[0], device=dev)
+    fn(host_batches[0])
+    zero_counts()
+    forecasts = [fn(b) for b in host_batches]
+    main_counts = {name: w.launches for name, w in counted.items()}
+    checks["104 int8_conv and 2 gated residual launches a forward"] = main_counts == {
+        name: {"int8_conv": 104, "fused_gated_residual": 2}.get(name, 0) * N_FWD
+        for name in counted}
+    checks["finite [128, 12] forecasts"] = all(
+        f.shape == (B, 12) and np.isfinite(f).all() for f in forecasts)
+    with torch.inference_mode():
+        ref = model(_to_device(host_batches[0], dev))[0].float().cpu().numpy()
+    out["forecast_rel_l2_vs_bf16"] = float(np.linalg.norm(forecasts[0] - ref)
+                                           / np.linalg.norm(ref))
+    # Where the w8a8 forward's time goes (128 photos, as phase 6 for bf16).
+    out["times"] = _forward_times(qmodel, fn, host_batches, dev, seed=730, kernel_groups={
+        "int8_conv": ("int8_conv_kernel",)})
+
+    # The backbone on the card, at the main path's 128 photos, against the
+    # CPU plain path from the same calibration on the first two of them: the
+    # same codes (every op after calibration works photo by photo).
+    photos = torch.from_numpy(host_batches[0]["images"])
+    x = normalize_images(photos, torch.bfloat16).permute(0, 3, 1, 2)
+    cpu_backbone = qr.W8A8Backbone(copy.deepcopy(model.image_encoder.backbone).cpu(), calib)
+    with torch.inference_mode():
+        on_card = qmodel.image_encoder.backbone(x.to(dev))[:W8A8_CHECK_BATCH].cpu()
+        on_cpu = cpu_backbone(x[:W8A8_CHECK_BATCH])
+    checks["backbone codes: card equal CPU"] = torch.equal(on_card, on_cpu)
+    out["backbone_card_vs_cpu_max_abs_diff"] = (on_card.float() - on_cpu.float()).abs().max() \
+        .item()
+    del cpu_backbone
+
+    # Forecasts/s: the w8a8 forward against the bf16 one, in turns, at each
+    # image duplication of W8A8_DUPLICATIONS.
+    rates = {}
+    with torch.inference_mode():
+        for d in W8A8_DUPLICATIONS:
+            batches = [_to_device(_dedup_batch(d, seed=720 + i), dev)
+                       for i in range(W8A8_TIMED_BATCHES)]
+            ms, host_ms = {"bf16": [], "w8a8": []}, {"bf16": [], "w8a8": []}
+            for name in ("bf16", "w8a8", "w8a8", "bf16"):
+                m = model if name == "bf16" else qmodel
+                host_ms[name].append(_host_issue_ms(m, batches))  # and the warm-up
+                cycle = itertools.cycle(batches)
+                ms[name].append(_cuda_ms(lambda: m(next(cycle)), 2 * len(batches)))
+            rates[f"d={d}"] = {
+                "photos": int(batches[0]["images"].shape[0]), "forward_ms": ms,
+                "host_issue_ms": host_ms,
+                "forecasts_per_s": {k: B / (np.mean(v) / 1e3) for k, v in ms.items()},
+                "w8a8_over_bf16_speed": np.mean(ms["bf16"]) / np.mean(ms["w8a8"]),
+                "w8a8_faster": max(ms["w8a8"]) < min(ms["bf16"])}
+            del batches
+    faster = [d for d in W8A8_DUPLICATIONS if rates[f"d={d}"]["w8a8_faster"]]
+    out["forecasts_per_s"] = rates
+    out["auto_max_duplication"] = {
+        "measured": float(max(faster)) if faster else 0.0,
+        "constant": qr.W8A8_AUTO_MAX_DUPLICATION,
+        "rule": "the largest duplication at which every w8a8 window beat every bf16 one"}
+
+    # The CLI: forecast_transformer --quantize w8a8 --export, the artifact
+    # loaded and served, then --quantize auto.
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path, _ = _write_cli_split(tmp)
+        art = os.path.join(tmp, "w8a8.v2torch")
+        argv = ["--dataset_path", path, "--model", "gated_v4", "--demand", "1",
+                "--output_len", "12", "--batch_size", str(B), "--image_size", str(IMAGE),
+                "--bf16_backbone", "--device", dev.type]
+        cli_out = io.StringIO()
+        zero_counts()
+        with contextlib.redirect_stdout(cli_out):
+            r = forecast_transformer.main(argv + ["--quantize", "w8a8",
+                                                  "--calib_batches", "2", "--export", art])
+        cli_counts = {name: w.launches for name, w in counted.items()}
+        lines = cli_out.getvalue().splitlines()
+        checks["cli: 104 int8_conv and 2 gated residual launches a forward"] = \
+            conv.launches == 104 * r.forwards and \
+            residual.launches == 2 * (r.forwards + W8A8_CALIB_BATCHES)  # and calibration's
+        checks["cli: finite"] = bool(np.isfinite([r.wape, r.mae]).all()) and \
+            r.num_forecasts == CLI_ROWS
+        fn_art, header = load_forecaster(art, device=dev)
+        zero_counts()
+        example = {k: v.numpy() for k, v in next(iter(_cli_loader(path))).items()}
+        fn_art(example)
+        checks["artifact: 104 int8_conv launches a forward"] = conv.launches == 104 and \
+            residual.launches == 2
+        serve_out = io.StringIO()
+        with contextlib.redirect_stdout(serve_out):
+            s = serve.main(["--artifact", art, "--dataset_path", path, "--device", dev.type,
+                            "--image_size", str(IMAGE)])
+        checks["served artifact: the CLI's WAPE and MAE bits"] = (s["wape"], s["mae"]) == (
+            r.wape, r.mae)
+        auto_out = io.StringIO()
+        with contextlib.redirect_stdout(auto_out):
+            auto = forecast_transformer.main(argv + ["--quantize", "auto"])
+        auto_line = [x for x in auto_out.getvalue().splitlines() if "[quantize auto]" in x]
+        out["cli"] = {
+            "wape": r.wape, "mae": r.mae, "num_forecasts": r.num_forecasts,
+            "forwards": r.forwards, "launches": cli_counts,
+            "split_forecasts_per_s": r.num_forecasts / r.split_seconds,
+            "forecasts_per_s": r.forecasts_per_sec, "gflops_per_sample": r.gflops_per_sample,
+            "lines": [x for x in lines if x.startswith("[w8a8]") or "Exported" in x],
+            "artifact": {k: header.get(k) for k in ("quantize", "quantized_arrays")},
+            "artifact_mb": os.path.getsize(art) / 1e6,
+            "served": {"wape": s["wape"], "mae": s["mae"]},
+            "auto": {"line": auto_line, "wape": auto.wape, "mae": auto.mae}}
+    _emit({"phase": "w8a8", **card, "model": "gated_v4", "batch": B, "image": IMAGE,
+           "backbone": "resnet101, bf16 model, w8a8 engine", "check_batch": W8A8_CHECK_BATCH,
+           "kernel_vs_plain_max_abs_err": errs, "shapes_b128": shapes, **out,
+           "timing": "kernel_us: CUDA events over 20 calls at B=128; plain_us: one call; "
+                     "int_mm_us: torch._int_mm on the 1x1 stride-1 shapes' GEMM; "
+                     "forward_ms: CUDA events over 8 forwards of 4 distinct device "
+                     "batches, bf16 and w8a8 in turns",
+           "launches_main_path": main_counts, "phase_s": time.perf_counter() - t_phase,
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"w8a8: {name}")
+    del model, qmodel, fn, fn_art
+    torch.cuda.empty_cache()
+    return {"launches": main_counts["int8_conv"], "max_abs_err": max_err,
+            "per_forward": out["per_forward"], "shapes": shapes,
+            "launches_cli": cli_counts}
+
+
+def _cli_loader(path):
+    """The forecast CLI's test loader on ``path`` (eval dedup, B=128)."""
+    from visuelle2_tpu_torch.cli import common, forecast_transformer
+
+    args = forecast_transformer.build_parser().parse_args(
+        ["--dataset_path", path, "--batch_size", str(B), "--image_size", str(IMAGE)])
+    return common.build_loaders(args, demand=True, output_len=12, splits=("test",),
+                                dedup_eval_images=True)[0]["test"]
+
+
+def _data_plane_phase(dev, card, zero_counts, counted):
+    """Phase data_plane: the native prefetch engine's effect on the scoring
+    pass and on the train step, in turns with the numpy gather, and
+    ``train_transformer --dedup_images 1`` (see the module docstring)."""
+    from visuelle2_tpu_torch.cli import common, train_transformer
+    from visuelle2_tpu_torch.cli.train_transformer import build_parser
+    from visuelle2_tpu_torch.data.loader import BatchLoader
+    from visuelle2_tpu_torch.eval.forecast import score_split
+    from visuelle2_tpu_torch.models import VocabSizes, build
+    from visuelle2_tpu_torch.train import loop
+
+    out, checks, seconds = {}, {}, {}
+    t_phase = time.perf_counter()
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = _write_train_split(tmp)
+        seconds["dataset_setup"] = time.perf_counter() - t_phase
+        argv = ["--dataset_path", path, "--model", "gated_v4", "--demand", "1",
+                "--batch_size", str(B), "--image_size", str(IMAGE), "--bf16_backbone",
+                "--device", dev.type, "--dedup_images", "0"]
+        args = build_parser().parse_args(argv)
+        loaders, vocab, norm = common.build_loaders(args, demand=True, output_len=12,
+                                                    pin_memory=dev.type == "cuda")
+        checks["loaders take the engine"] = all(
+            ld._engine is not None for ld in loaders.values())
+
+        def loader(split, native_prefetch):
+            ld = loaders[split]
+            return BatchLoader(ld.arrays, ld.images, B, shuffle=ld.shuffle,
+                               drop_remainder=ld.drop_remainder,
+                               pin_memory=dev.type == "cuda", native_prefetch=native_prefetch)
+
+        model = build("gated_v4", device=dev, generator=torch.Generator().manual_seed(41),
+                      vocab=vocab, image_dtype=torch.bfloat16, image_arch="resnet101")
+        model.eval()
+        scoring = {"numpy": [], "engine": []}
+        wape = {}
+        for native in DATA_PLANE_TURNS:
+            r = score_split(model, loader("test", native), norm_scalar=norm,
+                            measure_throughput=False)
+            key = "engine" if native else "numpy"
+            scoring[key].append(r.num_forecasts / r.split_seconds)
+            wape[key] = (r.wape, r.mae)
+        checks["scoring: the same metrics either way"] = wape["engine"] == wape["numpy"]
+        out["scoring_split_forecasts_per_s"] = scoring
+        seconds["scoring"] = time.perf_counter() - t_phase - sum(seconds.values())
+
+        trainer = loop.Trainer(model, loop.TrainConfig(grad_clip=0.5, learning_rate=TRAIN_LR))
+        state = trainer.init_state()
+        steps = {"numpy": [], "engine": []}
+
+        def epoch(ld, steps=None):
+            n = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for batch in ld:
+                trainer.train_step(state, batch)
+                n += 1
+                if n == steps:
+                    break
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / n
+
+        epoch(loader("train", True))  # warm-up
+        for native in DATA_PLANE_TURNS:
+            steps["engine" if native else "numpy"].append(epoch(loader("train", native)))
+        idle = {}
+        for native in (True, False):
+            ld = loader("train", native)
+            epoch(ld, DATA_PLANE_PROFILED_STEPS)  # the window starts in a steady state
+            with _profile() as prof:
+                ms = epoch(ld, DATA_PLANE_PROFILED_STEPS)
+            busy = _device_us(prof) / 1e3 / DATA_PLANE_PROFILED_STEPS
+            idle["engine" if native else "numpy"] = {
+                "step_ms_profiled": ms, "device_busy_ms_per_step": busy,
+                "device_idle_share": max(0.0, 1.0 - busy / ms)}
+        out["train_step_ms_through_the_loader"] = steps
+        out["train_idle"] = idle
+        seconds["train"] = time.perf_counter() - t_phase - sum(seconds.values())
+
+        # Unique-image training batches: the grouped sampler.
+        dedup_args = build_parser().parse_args(argv[:-1] + ["1"])
+        dedup_loader = common.build_loaders(dedup_args, demand=True, output_len=12,
+                                            splits=("train",), dedup_train_images=True,
+                                            pin_memory=dev.type == "cuda")[0]["train"]
+        dedup_ms = [epoch(dedup_loader) for _ in range(2)]
+        out["dedup_train"] = {
+            "unique_image_slots": dedup_loader.unique_image_slots,
+            "image_slots": dedup_loader.image_slots,
+            "duplication": B / dedup_loader.unique_image_slots,
+            "train_step_ms_through_the_loader": dedup_ms}
+        del trainer, state, model
+        torch.cuda.empty_cache()
+        cli_out = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(cli_out):
+            best = train_transformer.main(argv[:-1] + [
+                "1", "--epochs", "1", "--learning_rate", str(TRAIN_LR), "--ckpt_dir",
+                os.path.join(tmp, "ck")])
+        out["dedup_train"]["cli_s"] = time.perf_counter() - t0
+        metrics = [json.loads(x) for x in open(os.path.join(tmp, "ck", "metrics.jsonl"))]
+        losses = [x["train_loss"] for x in metrics if "train_loss" in x]
+        checks["dedup train_transformer: one finite epoch"] = bool(best) and len(losses) == 1 \
+            and np.isfinite(losses[0])
+        out["dedup_train"]["cli_metrics"] = metrics
+    seconds["dedup"] = time.perf_counter() - t_phase - sum(seconds.values())
+    out["phase_s"] = seconds
+    _emit({"phase": "data_plane", **card, "model": "gated_v4", "batch": B, "image": IMAGE,
+           "train_rows": TRAIN_ROWS, "test_rows": CLI_ROWS, "rows_per_image": 4,
+           "timing": "scoring: rows over the host-clock seconds of score_split's pass "
+                     "(one-pass, as the CLI picks); train: host clock over an epoch of "
+                     "Trainer.train_step on the loader's batches, ended by a sync; each "
+                     "mode in turns (numpy, engine, engine, numpy)",
+           **out, "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"data_plane: {name}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs on the GPU only")
@@ -2513,6 +2951,7 @@ def main():
         fused_gru_sequence as gru_kernel,
         fused_gru_sequence_plain as gru_plain,
     )
+    from visuelle2_tpu_torch.ops.cuda.int8_conv import int8_conv
     from visuelle2_tpu_torch.ops.cuda.probe_gemm import (
         matmul_bf16,
         matmul_bf16_plain,
@@ -2527,7 +2966,7 @@ def main():
     counted = {"fused_gated_residual": kernel, "fused_gated_mha": mha,
                "fused_additive_attention": additive, "fused_gru_sequence": gru_kernel,
                "probe_matmul_bf16": matmul_bf16, "probe_matmul_int8": matmul_int8,
-               "read_reduce": read_reduce}
+               "read_reduce": read_reduce, "int8_conv": int8_conv}
 
     def zero_counts():
         for wrapper in counted.values():
@@ -3056,8 +3495,12 @@ def main():
                                            gcd_block_mask)
     _train_parity_phase(dev, card, kernel)
     train_launches = _train_phase(dev, card, zero_counts, counted)
+    # 16j. the data plane: the prefetch engine in turns, dedup training ----------
+    _data_plane_phase(dev, card, zero_counts, counted)
     # 16e'. serving from an artifact: export, load, score, HTTP, SIGTERM, splice
     artifact_launches = _artifact_serve_phase(dev, card, zero_counts, counted)
+    # 16k. the w8a8 int8 backbone: the kernel, the serving path, the CLI ---------
+    w8a8 = _w8a8_phase(dev, card, zero_counts, counted)
 
     # 16f.–16h. CrossAttnRNN training: the two kernels under autograd, card vs
     # CPU, full-width Demand -------------------------------------------------------
@@ -3306,13 +3749,33 @@ def main():
         probe_row("probe_matmul_int8", "int8", "visuelle2_tpu_torch/csrc/probe_gemm.cu", 209,
                   probe["max_abs_err"]["int8"], {"tol": 0}),
         probe_row("read_reduce", "read", "visuelle2_tpu_torch/csrc/read_reduce.cu", 249,
-                  probe["max_abs_err"]["read"], {"atol": READ_ATOL, "rtol": READ_RTOL})]
+                  probe["max_abs_err"]["read"], {"atol": READ_ATOL, "rtol": READ_RTOL}), {
+        "name": "int8_conv", "route": "cuda",
+        "source": "visuelle2_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "visuelle2_tpu/models/quantized_resnet.py:86",
+        "replaces_note": "the JAX engine's XLA convolution (int32 sums, its epilogue fused "
+                         "by XLA); no pl.pallas_call",
+        "launches": w8a8["launches"], "launches_per_forward": w8a8["launches"] / N_FWD,
+        "max_abs_err": w8a8["max_abs_err"], "tol": 0,
+        "timed_by": "per forward at B=128: each distinct shape's CUDA-event time "
+                    "times its launches a forward, summed",
+        "ms": w8a8["per_forward"]["kernel_ms"], "plain_ms": w8a8["per_forward"]["plain_ms"],
+        "bound_ms": w8a8["per_forward"]["bound_ms"],
+        "bound_by": w8a8["per_forward"]["bound_by"], "library_ms": None,
+        "library_note": "no PyTorch call computes an int8 convolution with this epilogue; "
+                        "torch._int_mm on the 1x1 stride-1 shapes' GEMMs is in "
+                        "int_mm_ms_on_1x1_stride1",
+        "per_forward": w8a8["per_forward"],
+        "by_shape_us": {k: {f: v[f] for f in ("launches_per_forward", "kernel_us",
+                                              "plain_us", "bound_us", "int_mm_us")}
+                        for k, v in w8a8["shapes"].items()}}]
     for row in kernel_rows:
         # Each path's own count, zeroed just before it: "launches" is the
         # path the row has always named; the forecast CLIs' scoring runs too.
         row["launches_forecast_cli"] = cli_launches[row["name"]]
         row["launches_run_all"] = run_all_launches[row["name"]]
         row["launches_artifact_serve"] = artifact_launches[row["name"]]
+        row["launches_w8a8_cli"] = w8a8["launches_cli"][row["name"]]
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

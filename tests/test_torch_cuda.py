@@ -11,11 +11,14 @@ import pytest
 import torch
 
 from visuelle2_tpu_torch.models import VocabSizes, build
+from visuelle2_tpu_torch.models import quantized_resnet as tqr
+from visuelle2_tpu_torch.models.resnet import STAGE_BLOCKS, ResNetBackbone
 from visuelle2_tpu_torch.ops.cuda import _build
 from visuelle2_tpu_torch.ops.cuda import additive_attention as taa
 from visuelle2_tpu_torch.ops.cuda import gated_fusion as tgf
 from visuelle2_tpu_torch.ops.cuda import gated_mha as tgm
 from visuelle2_tpu_torch.ops.cuda import gru_seq as tgs
+from visuelle2_tpu_torch.ops.cuda import int8_conv as tic
 from visuelle2_tpu_torch.ops.cuda import probe_gemm as tpg
 from visuelle2_tpu_torch.ops.cuda import read_reduce as trr
 from visuelle2_tpu_torch.ops.masks import gcd_block_mask
@@ -688,3 +691,73 @@ def test_probe_kernels_no_fallback_without_the_kernel(monkeypatch, module, call)
             call()
     finally:
         module._kernel.cache_clear()
+
+
+# -- the w8a8 backbone's int8 convolution (no TPU kernel: XLA in JAX) ----------------
+
+INT8_SHAPES = sorted({c[1:] for c in tqr.conv_launches(STAGE_BLOCKS["resnet101"], 299)})
+
+
+def _int8_conv_inputs(shape, n=2, seed=0):
+    h, w, cin, cout, k, stride, pad, epilogue = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-127 if cin == 3 else 0, 128, (n, h, w, cin), generator=g,
+                      dtype=torch.int8)
+    wt = tic.pack_weight(torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                                       dtype=torch.int8))
+    m = (torch.rand(cout, generator=g) + 0.5) * (60.0 / ((k * k * cin) ** 0.5 * 70 * 73))
+    z = torch.rand(cout, generator=g) * 40 - 10
+    ho = tic.out_size(h, k, stride, pad)
+    addend = (torch.rand(n, ho, ho, cout, generator=g) * 60 - 30
+              if epilogue == "requant_add" else None)
+    kw = dict(kernel=k, stride=stride, pad=pad, epilogue=epilogue)
+    return (x, wt, m, z), addend, kw
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=str)
+def test_int8_conv_matches_plain_on_every_resnet101_shape(shape):
+    """Every distinct conv launch of a ResNet-101 forward at 299², at B=2:
+    the codes (and the "float" epilogue's values) bit-equal to the plain
+    version's on the card and on the CPU."""
+    args, addend, kw = _int8_conv_inputs(shape)
+    cuda = [t.cuda() for t in args]
+    launches = tic.int8_conv.launches
+    got = tic.int8_conv(*cuda, addend=None if addend is None else addend.cuda(), **kw)
+    torch.cuda.synchronize()
+    assert tic.int8_conv.launches == launches + 1
+    want = tic.int8_conv_plain(*cuda, addend=None if addend is None else addend.cuda(), **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), tic.int8_conv_plain(*args, addend=addend, **kw))
+
+
+def test_w8a8_backbone_on_card_makes_104_launches_and_matches_cpu():
+    """ResNet-101 at 64², B=2: one int8_conv launch per conv (104), and the
+    codes the CPU plain path gives from the same calibration."""
+    torch.manual_seed(0)
+    bb = ResNetBackbone(STAGE_BLOCKS["resnet101"]).eval()
+    x = torch.randn(2, 3, 64, 64).to(memory_format=torch.channels_last)
+    record = {}
+    tqr.float_forward(bb, x.permute(0, 2, 3, 1), record)
+    calib = {k: float(v) for k, v in record.items()}
+    cpu = tqr.W8A8Backbone(bb, calib)
+    card = tqr.W8A8Backbone(bb, calib).cuda()
+    with torch.inference_mode():
+        want = cpu(x)
+        launches = tic.int8_conv.launches
+        got = card(x.cuda())
+        assert tic.int8_conv.launches - launches == 104
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+def test_int8_conv_no_fallback_without_the_kernel(monkeypatch):
+    def no_library():
+        raise RuntimeError("kernel library unavailable")
+
+    args, _, kw = _int8_conv_inputs(INT8_SHAPES[0])
+    monkeypatch.setattr(_build, "load_library", no_library)
+    tic._kernel.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="unavailable"):
+            tic.int8_conv(*[t.cuda() for t in args], **kw)
+    finally:
+        tic._kernel.cache_clear()

@@ -362,8 +362,21 @@ def test_batch_loader_matches_jax(datasets, case):
 
 
 def test_shuffled_dedup_waits_for_the_grouped_sampler(datasets):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _loaders(datasets, False, 16, shuffle=True, dedup_images=True)
+    """The grouped sampler is ported: shuffled dedup batches equal the JAX
+    loader's over two epochs, and pinning the epoch replays its order."""
+    port, ref = _loaders(datasets, False, 16, shuffle=True, dedup_images=True, seed=9)
+    assert (port.unique_image_slots, port.image_slots) == \
+        (ref.unique_image_slots, ref.image_slots)
+    for _ in range(2):
+        got, want = list(port), list(ref)
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for k in w:
+                _assert_same(g[k].numpy(), np.asarray(w[k]))
+    port.set_epoch(0)
+    ref.set_epoch(0)
+    _assert_same(next(iter(port))["img_idx"].numpy(), next(iter(ref))["img_idx"])
 
 
 @pytest.mark.cuda

@@ -228,13 +228,20 @@ def test_each_package_refuses_the_others_artifact(jax_dir, tmp_path):
 def test_export_refusals(tmp_path, monkeypatch):
     model, task = _port_model("gated_v4"), JAX_CASES["gated_v4"][1]
     path = str(tmp_path / "x.v2torch")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # w8a8 needs its calibration, as the JAX exporter its calibrated apply_fn.
+    with pytest.raises(ValueError, match="calibration"):
         export.export_forecaster(model, _batch(task), path, quantize="w8a8")
     with pytest.raises(ValueError, match="unsupported quantize"):
         export.export_forecaster(model, _batch(task), path, quantize="int4")
     with pytest.raises(ValueError, match="models.build"):
         export.export_forecaster(torch.nn.Linear(2, 2), _batch(task), path)
     assert not os.path.exists(path)
+    # ... and with one it exports, the header saying so.
+    from visuelle2_tpu_torch.models.quantized_resnet import calibrate_model
+
+    calib = calibrate_model(model, [{k: torch.from_numpy(v) for k, v in _batch(task).items()}])
+    export.export_forecaster(model, _batch(task), path, quantize="w8a8", calib=calib)
+    assert export.read_artifact(path)[0]["w8a8"]["calib"] == calib
     export.export_forecaster(model, _batch(task), path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,6 +1,7 @@
 """Shared CLI plumbing, counterpart of ``visuelle2_tpu/cli/common.py``: the
-common flags, dataset and loader construction, the ``--quantize`` gate and
-the forecast CLIs' ``--export``, the train CLIs' flags (``add_train_args``)
+common flags, dataset and loader construction, ``--quantize`` (the w8a8
+calibration and ``auto``'s policy) and the forecast CLIs' scoring and
+``--export``, the train CLIs' flags (``add_train_args``)
 and body (``run_training``: ``--pretrained_backbone``, ``--resume_from``,
 the checkpoints, the manifest, the exit after a SIGTERM) and the JSONL
 metrics log.
@@ -77,16 +78,14 @@ def add_forecast_args(p, *, dump_help: str):
     p.add_argument("--export", type=str, default="",
                    help="after scoring, write a serving artifact of the model "
                         "(eval/export.py) with the first test batch's signature")
-    # w8a8 calibration (read once --quantize w8a8 is ported)
-    p.add_argument("--calib_batches", type=int, default=2,
-                   help="batches used to calibrate w8a8 activation scales")
-    p.add_argument("--calib_split", type=str, default="test", choices=["test", "train"],
-                   help="split the calibration batches come from")
+    add_quantize_calib_args(p)
     p.add_argument("--quantize", type=str, default="",
                    choices=["", "none", "int8", "w8a8", "auto"],
-                   help="'' or none: float weights; int8: the --export "
-                        "artifact stores weight-only per-channel int8 (~4x smaller); "
-                        "w8a8 and auto are ported with the int8 backbone")
+                   help="'' or none: float; int8: the --export artifact stores "
+                        "weight-only per-channel int8 (~4x smaller); w8a8: score (and "
+                        "export) with the int8 ResNet backbone, calibrated on "
+                        "--calib_batches of --calib_split; auto: w8a8 where the card "
+                        "measured it faster at this image duplication, else float")
     p.add_argument("--dump_attention", type=str, default="", help=dump_help)
     p.add_argument("--metrics_out", type=str, default="",
                    help="also write WAPE/MAE/throughput/GFLOPs as JSON")
@@ -106,30 +105,87 @@ def resolve_cli_device(args) -> torch.device:
     return torch.device(f"cuda:{args.gpu_num}")
 
 
-def resolve_quantize(args) -> str:
-    """The ``--quantize`` mode: ``""`` (also for ``none``) or ``int8`` (the
-    artifact's weight storage); ``w8a8`` and ``auto`` raise until the int8
-    backbone lands."""
+def add_quantize_calib_args(p):
+    """The w8a8 calibration flags of the forecast CLIs."""
+    p.add_argument("--calib_batches", type=int, default=2,
+                   help="batches used to calibrate w8a8 activation scales")
+    p.add_argument("--calib_split", type=str, default="test", choices=["test", "train"],
+                   help="split the calibration batches come from; test (the default) "
+                        "reuses the scored split's statistics, train is leakage-free")
+
+
+def calib_splits(args) -> tuple:
+    """The splits a forecast CLI loads: the train split too when w8a8 (or
+    auto) calibrates on it."""
+    if (getattr(args, "quantize", "") in ("w8a8", "auto")
+            and getattr(args, "calib_split", "test") == "train"):
+        return ("train", "test")
+    return ("test",)
+
+
+def resolve_quantize(args, loader=None) -> str:
+    """The concrete ``--quantize`` mode of a forecast run: "", "int8" or
+    "w8a8".  ``auto`` picks w8a8 for a production ResNet (resnet50/101,
+    ``use_img``) at an image duplication (batch rows / the loader's true
+    unique-image slots; 1 without dedup) of at most
+    ``models/quantized_resnet.py::W8A8_AUTO_MAX_DUPLICATION``, the crossover
+    measured on the card, and says what it picked."""
     mode = getattr(args, "quantize", "") or ""
-    if mode in ("", "none"):
+    if mode == "none":
         return ""
-    if mode == "int8":
+    if mode != "auto":
         return mode
-    raise NotImplementedError(
-        f"--quantize {mode} is ported in ROADMAP Queue 1 item 14 (the w8a8 backbone, "
-        "and auto's crossover measured again on the card)")
+    from visuelle2_tpu_torch.models import quantized_resnet as qr
+    from visuelle2_tpu_torch.models.resnet import STAGE_BLOCKS
+
+    slots = (getattr(loader, "unique_image_slots", 0)
+             or getattr(loader, "image_slots", 0)) if loader is not None else 0
+    duplication = loader.batch_size / slots if slots else 1.0
+    has_resnet = bool(getattr(args, "use_img", 1)) and getattr(
+        args, "image_arch", "") in (set(STAGE_BLOCKS) - {"tiny"})
+    mode = qr.resolve_auto_mode(duplication=duplication, has_resnet_backbone=has_resnet)
+    why = (f"duplication={duplication:.1f} (batch {loader.batch_size} / {slots} unique "
+           f"images)" if slots else "no image dedup")
+    limit = qr.W8A8_AUTO_MAX_DUPLICATION
+    region = (f"w8a8 measured faster at d <= {limit:g}" if limit > 0
+              else "w8a8 measured faster at no duplication")
+    print(f"[quantize auto] {why}, resnet={int(has_resnet)} -> {mode or 'float path'} "
+          f"({region}; models/quantized_resnet.py)")
+    return mode
 
 
-def export_scored_model(args, model, loader, provenance: dict) -> None:
-    """``--export``: write ``model`` as a serving artifact with the first
-    batch of ``loader`` as its signature, int8 weights under ``--quantize
-    int8``."""
-    if not getattr(args, "export", ""):
-        return
-    example = {k: v.numpy() for k, v in next(iter(loader)).items()}
-    size = export_forecaster(model, example, args.export, quantize=resolve_quantize(args),
-                             extra_header=provenance)
-    print(f"Exported serving artifact: {args.export} ({size / 1e6:.1f} MB)")
+def build_w8a8_serving_path(model, loaders, args):
+    """The forecast CLIs' w8a8 prologue: calibrate on ``--calib_batches``
+    batches of ``--calib_split`` (on the model's device) and return
+    ``(the w8a8 copy of model, calib)`` (``models/quantized_resnet.py``)."""
+    from visuelle2_tpu_torch.models import quantized_resnet as qr
+    from visuelle2_tpu_torch.train.loop import to_device
+
+    split = getattr(args, "calib_split", "test") or "test"  # loaded by calib_splits
+    n = max(1, int(getattr(args, "calib_batches", 2)))
+    device = next(model.parameters()).device
+    batches = [to_device(b, device) for b, _ in zip(loaders[split], range(n))]
+    qmodel, calib = qr.build_serving_path(model, batches)
+    print(f"[w8a8] int8 backbone: {len(calib)} activation scales calibrated on "
+          f"{len(batches)} {split} batches")
+    return qmodel, calib
+
+
+def score_and_export(args, model, loaders, norm_scalar: float, provenance: dict):
+    """What both forecast CLIs do once the model is restored: resolve
+    ``--quantize``, calibrate the w8a8 copy when it says so, score the test
+    split with the model it picked, then ``--export``."""
+    quantize = resolve_quantize(args, loaders["test"])
+    scored, calib = model, None
+    if quantize == "w8a8":
+        scored, calib = build_w8a8_serving_path(model, loaders, args)
+    result = score_test_split(args, scored, loaders["test"], norm_scalar)
+    if getattr(args, "export", ""):
+        example = {k: v.numpy() for k, v in next(iter(loaders["test"])).items()}
+        size = export_forecaster(model, example, args.export, quantize=quantize,
+                                 extra_header=provenance, calib=calib)
+        print(f"Exported serving artifact: {args.export} ({size / 1e6:.1f} MB)")
+    return result
 
 
 def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test"),
@@ -145,10 +201,12 @@ def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test
     checked when a checkpoint is scored).  ``dedup_eval_images`` makes
     non-train loaders ship unique-image batches (identical outputs, backbone
     FLOPs divided by the photo duplication factor); ``dedup_train_images``
-    asks the train loader for the grouped sampler, which raises until
-    ROADMAP Queue 1 item 11 (``--dedup_images 1`` on a train CLI).
+    gives the train loader the grouped sampler (``--dedup_images 1`` on a
+    train CLI; ``data/loader.py``).
     ``dedup_image_slots`` forces the slot count (an artifact's signature
     fixed it at export).  ``pin_memory`` pins every batch (a CUDA target).
+    Non-dedup batches gather their images through the native prefetch
+    engine (``native/``), built at first use.
     """
     cat_dict, col_dict, fab_dict = load_label_dicts(args.dataset_path)
     vocab = VocabSizes.from_dicts(cat_dict, col_dict, fab_dict)

@@ -13,7 +13,9 @@ and dtypes, not values), restores the checkpoint and writes the artifact
 
 The vocabulary sizes must match training (the embedding shapes): pass
 ``--vocab cat,col,fab[,store]`` or ``--dataset_path`` to read the label
-dicts.  ``--quantize int8`` stores weight-only per-channel int8 weights.
+dicts.  ``--quantize int8`` stores weight-only per-channel int8 weights;
+``--quantize w8a8`` refuses (it calibrates on real batches: use
+``forecast_* --export --quantize w8a8``).
 ``--device`` (``cuda`` unless given) is where the model is built and
 restored.
 """
@@ -66,6 +68,11 @@ def synth_batch(n, image_size, vocab, *, demand, output_len,
 
 def run(args):
     print(args)
+    if args.quantize == "w8a8":
+        raise SystemExit("--quantize w8a8 calibrates its activation scales on real "
+                         "batches, which this dataset-free exporter has none of: use "
+                         "forecast_dl or forecast_transformer --export PATH --quantize "
+                         "w8a8")
     if args.vocab:
         parts = [int(x) for x in args.vocab.split(",")]
         if len(parts) not in (3, 4):
@@ -140,9 +147,11 @@ def build_parser():
                    help="export a unique-image (dedup) signature with this "
                         "many image slots + an img_idx map")
     p.add_argument("--quantize", type=str, default="",
-                   choices=["", "none", "int8"],
-                   help="weight-only int8 artifact (~4x smaller; "
-                        "eval/export.py)")
+                   choices=["", "none", "int8", "w8a8"],
+                   help="int8: weight-only int8 artifact (~4x smaller; eval/export.py).  "
+                        "w8a8 needs real activations to calibrate, so it is offered "
+                        "where a dataset is in hand: forecast_{dl,transformer} --export "
+                        "--quantize w8a8")
     return p
 
 

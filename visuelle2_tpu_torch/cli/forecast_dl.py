@@ -15,8 +15,10 @@ checked against the manifest.  Without it the CLI scores a model drawn from
 ``--seed``.  ``--export PATH`` then writes the model as a serving artifact
 (``eval/export.py``; ``--quantize int8`` stores int8 weights) with
 ``provenance`` ``{"model": <class name>}``; ``cli/serve.py`` scores or serves
-it.  ``--quantize w8a8|auto`` raise ``NotImplementedError`` (ROADMAP Queue 1
-item 14).
+it.  ``--quantize w8a8`` scores (and exports) the model with its ResNet
+backbone on the int8 engine (``models/quantized_resnet.py``), calibrated on
+``--calib_batches`` batches of ``--calib_split``; ``--quantize auto`` picks
+w8a8 or float by the image duplication (``cli/common.py::resolve_quantize``).
 """
 
 from __future__ import annotations
@@ -29,10 +31,9 @@ from visuelle2_tpu_torch.cli.common import (
     add_common_args,
     add_forecast_args,
     build_loaders,
-    export_scored_model,
+    calib_splits,
     resolve_cli_device,
-    resolve_quantize,
-    score_test_split,
+    score_and_export,
 )
 from visuelle2_tpu_torch.models import build
 from visuelle2_tpu_torch.train.checkpoint import CheckpointManager, resolve_ckpt_path
@@ -90,12 +91,11 @@ def run(args, parser=None, argv=None):
         ckpt = CheckpointManager(ckpt_root, read_only=True)
         hp = apply_ckpt_hparams(args, parser or build_parser(), DL_STRUCTURAL, argv)
     print(args)
-    resolve_quantize(args)  # w8a8 and auto raise before any work
     demand = bool(args.new_product)
     output_len = output_len_of(args, hp)
     device = resolve_cli_device(args)
     loaders, vocab, norm_scalar = build_loaders(
-        args, demand=demand, output_len=output_len, splits=("test",),
+        args, demand=demand, output_len=output_len, splits=calib_splits(args),
         dedup_eval_images=bool(args.dedup_images), pin_memory=device.type == "cuda")
     check_dataset_compat(hp, vocab, norm_scalar)
     model = make_model(args, vocab, output_len, demand=demand, device=device,
@@ -104,9 +104,9 @@ def run(args, parser=None, argv=None):
         ckpt.restore_for_eval(model, ckpt_step)
         print(f"restored {ckpt_root} epoch "
               f"{ckpt.best_step() if ckpt_step is None else ckpt_step}")
-    result = score_test_split(args, model, loaders["test"], norm_scalar)
+    result = score_and_export(args, model, loaders, norm_scalar,
+                              {"model": type(model).__name__})
     print(f"GFLOPS: {result.gflops_per_sample}")
-    export_scored_model(args, model, loaders["test"], {"model": type(model).__name__})
     return result
 
 

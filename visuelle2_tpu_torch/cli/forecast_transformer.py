@@ -19,8 +19,11 @@ CLI does.  ``--dump_attention`` writes gtm_v1's decoder attention weights.
 ``--export PATH`` then writes the model as a serving artifact
 (``eval/export.py``; ``--quantize int8`` stores int8 weights) with
 ``provenance`` ``{"model", "text_fingerprint" (gtm_v1)}``; ``cli/serve.py``
-scores or serves it.  ``--quantize w8a8|auto`` raise ``NotImplementedError``
-(ROADMAP Queue 1 item 14).
+scores or serves it.  ``--quantize w8a8`` scores (and exports) the model
+with its ResNet backbone on the int8 engine (``models/quantized_resnet.py``),
+calibrated on ``--calib_batches`` batches of ``--calib_split`` (``train``
+loads the train split too); ``--quantize auto`` picks w8a8 or float by the
+image duplication (``cli/common.py::resolve_quantize``).
 """
 
 from __future__ import annotations
@@ -34,10 +37,9 @@ from visuelle2_tpu_torch.cli.common import (
     add_forecast_args,
     add_train_args,
     build_loaders,
-    export_scored_model,
+    calib_splits,
     resolve_cli_device,
-    resolve_quantize,
-    score_test_split,
+    score_and_export,
 )
 from visuelle2_tpu_torch.models import build
 from visuelle2_tpu_torch.train.checkpoint import CheckpointManager, resolve_ckpt_path
@@ -85,13 +87,12 @@ def run(args, parser=None, argv=None):
         hp = apply_ckpt_hparams(args, parser or build_parser(), TRANSFORMER_STRUCTURAL,
                                 argv)
     print(args)
-    resolve_quantize(args)  # w8a8 and auto raise before any work
     demand = bool(args.demand)
     if args.model == "gtm_v1" and not demand:
         raise SystemExit("gtm_v1 is demand-only; use --demand 1")
     device = resolve_cli_device(args)
     loaders, vocab, norm_scalar = build_loaders(
-        args, demand=demand, output_len=args.output_len, splits=("test",),
+        args, demand=demand, output_len=args.output_len, splits=calib_splits(args),
         text_features=args.model == "gtm_v1", dedup_eval_images=bool(args.dedup_images),
         pin_memory=device.type == "cuda")
     check_dataset_compat(hp, vocab, norm_scalar)
@@ -102,12 +103,10 @@ def run(args, parser=None, argv=None):
         ckpt.restore_for_eval(model, ckpt_step)
         print(f"restored {ckpt_root} epoch "
               f"{ckpt.best_step() if ckpt_step is None else ckpt_step}")
-    result = score_test_split(args, model, loaders["test"], norm_scalar)
     fingerprint = getattr(loaders["test"], "text_fingerprint", None)
-    export_scored_model(args, model, loaders["test"], {
+    return score_and_export(args, model, loaders, norm_scalar, {
         "model": args.model,
         **({"text_fingerprint": fingerprint} if args.model == "gtm_v1" else {})})
-    return result
 
 
 def add_model_args(p, default_model="gtm"):

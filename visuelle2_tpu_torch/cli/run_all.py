@@ -11,8 +11,7 @@ prints the six results.  The flags are the JAX CLI's plus ``--device``
 (``cuda`` unless given), handed on to every CLI.  Each CLI gets its argument
 list, as from a command line: a forecast CLI fills the structural flags not
 in it from the checkpoint's ``hparams.json``.  ``--dedup_images 1`` reaches
-``train_dl``, which raises until the grouped sampler is ported (ROADMAP
-Queue 1 item 11).
+``train_dl``: unique-image training batches (the grouped sampler).
 """
 
 from __future__ import annotations
@@ -86,7 +85,7 @@ def build_parser():
     p.add_argument("--image_size", type=int, default=299)
     p.add_argument("--quick_debug", action="store_true")
     p.add_argument("--dedup_images", type=int, default=0,
-                   help="unique-image training batches (the grouped sampler, ROADMAP item 11)")
+                   help="unique-image training batches (the grouped sampler)")
     p.add_argument("--accum_steps", type=int, default=1)
     p.add_argument("--remat", action="store_true")
     p.add_argument("--device", type=str, default="cuda", help="cuda (the default) or cpu")

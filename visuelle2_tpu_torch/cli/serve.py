@@ -18,7 +18,10 @@ PORT`` (0: a free port, printed) serves ``POST /forecast`` (npz in, npz out)
 and ``GET /health`` until SIGTERM, then drains in-flight requests for
 ``--drain_grace_s`` seconds and exits 143 (``eval/server.py::
 serve_forever``).  ``--device`` (``cuda`` unless given)
-is where the artifact runs.
+is where the artifact runs.  A w8a8 artifact (``--quantize w8a8`` at export)
+runs its backbone on the int8 engine; scored at an image duplication where
+the card measured w8a8 slower than float, the CLI prints a note
+(``w8a8_dedup_advisory``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,27 @@ from visuelle2_tpu_torch.cli.common import add_common_args, build_loaders, resol
 from visuelle2_tpu_torch.eval.export import load_forecaster
 from visuelle2_tpu_torch.ops.metrics import eval_metrics, finalize_metrics
 from visuelle2_tpu_torch.train.loop import SUM_KEYS, expand_mask, target_and_pred
+
+
+def w8a8_dedup_advisory(header: dict, batch_size: int, slots: int):
+    """A note when a w8a8 artifact is served at an image duplication (batch
+    rows / unique images) above the largest at which the card measured the
+    w8a8 forward faster than the float one
+    (``models/quantized_resnet.py::W8A8_AUTO_MAX_DUPLICATION``), where
+    ``--quantize auto`` would have exported float; None when there is nothing
+    to say."""
+    if header.get("quantize") != "w8a8" or not slots:
+        return None
+    from visuelle2_tpu_torch.models.quantized_resnet import W8A8_AUTO_MAX_DUPLICATION
+
+    duplication = batch_size / slots
+    if duplication <= W8A8_AUTO_MAX_DUPLICATION:
+        return None
+    return (f"[serve] note: w8a8 artifact at image duplication {duplication:.1f} (batch "
+            f"{batch_size} / {slots} unique images): the card measured w8a8 faster than "
+            f"the float path only up to d={W8A8_AUTO_MAX_DUPLICATION:g} "
+            f"(models/quantized_resnet.py), and --quantize auto exports float above it; "
+            f"consider a float or --quantize auto export for this duplication factor")
 
 
 def run(args):
@@ -62,6 +86,11 @@ def run(args):
         args, demand=demand, output_len=output_len, splits=("test",),
         text_features=text_features, dedup_eval_images=dedup, dedup_image_slots=slots)
     loader = loaders["test"]
+    # On the true duplication: the artifact's slot count may be padded.
+    note = w8a8_dedup_advisory(header, loader.batch_size,
+                               loader.unique_image_slots or loader.image_slots)
+    if note:
+        print(note)
     if text_features:
         want = (header.get("provenance") or {}).get("text_fingerprint")
         have = getattr(loader, "text_fingerprint", None)

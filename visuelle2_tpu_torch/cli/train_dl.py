@@ -19,7 +19,8 @@ it saves at the next step boundary and exits 143; the same command with
 
 ``--pretrained_backbone X.npz`` splices a converted backbone
 (``models/pretrained.py``) into the model before the first step.
-``--dedup_images 1`` (the grouped sampler, ROADMAP Queue 1 item 11) raises.
+``--dedup_images 1`` trains on unique-image batches (the grouped sampler,
+``data/loader.py``): each photo of a batch is encoded once.
 """
 
 from __future__ import annotations
@@ -93,7 +94,7 @@ def build_parser():
     p.add_argument("--use_teacher_forcing", action="store_true")
     p.add_argument("--teacher_forcing_ratio", type=float, default=0.5)
     p.add_argument("--dedup_images", type=int, default=0,
-                   help="grouped-shuffle training batches (ported in ROADMAP item 11)")
+                   help="unique-image training batches (the grouped sampler)")
     p.add_argument("--ckpt_dir", type=str, default="ckpt_CrossAttnRNN210/")
     add_train_args(p)
     return p

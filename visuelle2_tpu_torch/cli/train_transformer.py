@@ -19,8 +19,8 @@ command with ``--resume_from auto`` continues at the next step.
 features (``cli/common.py::build_loaders``), and its manifest records their
 featurizer's ``text_fingerprint``.  ``--pretrained_backbone X.npz`` splices
 a converted backbone (``models/pretrained.py``) into the model before the
-first step.  ``--dedup_images 1`` (the grouped sampler, ROADMAP Queue 1 item
-11) raises.
+first step.  ``--dedup_images 1`` trains on unique-image batches (the
+grouped sampler, ``data/loader.py``): each photo of a batch is encoded once.
 """
 
 from __future__ import annotations

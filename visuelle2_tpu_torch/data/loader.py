@@ -6,9 +6,13 @@ dicts of torch CPU tensors with the JAX batch's keys, dtypes and values.
 With ``pin_memory`` (the caller's target is a CUDA device) each tensor is
 pinned, so the copy to the card can run asynchronously.
 
-Not here yet: the grouped shuffle sampler (``shuffle=True`` with
-``dedup_images``) and the native prefetch engine (ROADMAP Queue 1 item 11),
-and ``shard_batch`` (item 12).
+Without dedup, a batch's images are gathered by the native prefetch engine
+(``native/``: C++ worker threads) while the previous batch is consumed, into
+a fresh buffer for every batch (pinned when ``pin_memory`` is set, gathered
+straight into it): a buffer is never reused, so a ``non_blocking`` copy to
+the card still reading one batch never races the next batch's gather.
+``native_prefetch=False`` gathers with numpy instead; a failed build of the
+engine raises.
 """
 
 from __future__ import annotations
@@ -39,11 +43,25 @@ class BatchLoader:
     with ``default_rng(seed + epoch)``, the epoch counting up per iteration
     unless ``set_epoch`` pins it.
 
-    ``dedup_images`` (eval order only): rows are ordered by image, and each
-    batch ships its unique images in ``image_slots`` slots (the most any
-    batch needs, unless given; spare slots repeat the batch's images
-    cyclically) plus an ``img_idx`` row -> slot map, so the model encodes
-    each photo once.
+    ``dedup_images``: each batch ships its unique images in ``image_slots``
+    slots (spare slots repeat the batch's images cyclically) plus an
+    ``img_idx`` row -> slot map, so the model encodes each photo once.
+    Without ``shuffle`` (eval) rows are ordered by image and the slot count
+    is the most any batch needs.  With ``shuffle`` (training: the grouped
+    sampler) each epoch permutes the groups of rows that share a photo, then
+    the rows inside each group, from ``default_rng(seed + epoch)``, as the
+    JAX loader does; the slot count is a bound that holds for every
+    permutation: a window of B consecutive rows over contiguous groups meets
+    at most 2 boundary groups plus as many of the smallest groups as fit in
+    the other B - 2 rows.  ``unique_image_slots`` is that requirement before
+    ``image_slots`` is forced (an artifact's signature) or rounded up to
+    ``image_slots_multiple`` (the data-parallel degree; 1 on one card): the
+    true duplication factor is ``batch_size / unique_image_slots``.
+
+    Against the duplicate-encode batch, per-row losses and the gather's
+    gradients are the same up to two train-mode deviations (the JAX
+    loader's): BatchNorm statistics weight each unique photo once, and rows
+    that share a photo share one dropout mask on its image features.
     """
 
     def __init__(self, arrays: Visuelle2Arrays, images: Optional[ImageStore],
@@ -51,7 +69,8 @@ class BatchLoader:
                  drop_remainder: bool = False,
                  extras: Optional[Dict[str, np.ndarray]] = None,
                  dedup_images: bool = False, image_slots: int = 0,
-                 pin_memory: bool = False):
+                 image_slots_multiple: int = 1, pin_memory: bool = False,
+                 native_prefetch: bool = True):
         self.arrays = arrays
         self.images = images
         if images is not None and len(images) != len(arrays):
@@ -65,27 +84,41 @@ class BatchLoader:
         self.drop_remainder = drop_remainder
         self.pin_memory = pin_memory
         self.dedup_images = bool(dedup_images and images is not None)
-        if self.dedup_images and shuffle:
-            raise NotImplementedError(
-                "the grouped shuffle sampler (shuffle=True with dedup_images) is "
-                "ported in ROADMAP Queue 1 item 11 (data plane)")
-        self.image_slots = 0
+        self.image_slots = self.unique_image_slots = 0
         if self.dedup_images:
             self._dedup_order = np.argsort(images.row_to_img, kind="stable")
-            blocks = self._split_blocks(self._dedup_order)
-            slots = max((len(np.unique(images.image_indices(b))) for b in blocks),
-                        default=1)
+            if shuffle:
+                sizes = np.sort(np.bincount(images.row_to_img))
+                sizes = sizes[sizes > 0]
+                interior = int(np.searchsorted(np.cumsum(sizes), batch_size - 2,
+                                               side="right"))
+                slots = min(len(sizes), batch_size, interior + 2)
+                firsts = np.unique(images.row_to_img[self._dedup_order],
+                                   return_index=True)[1]
+                self._groups = np.split(self._dedup_order, firsts[1:])
+            else:
+                slots = max((len(np.unique(images.image_indices(b)))
+                             for b in self._split_blocks(self._dedup_order)), default=1)
+            self.unique_image_slots = int(slots)
             if image_slots and image_slots < slots:
                 raise ValueError(
                     f"image_slots={image_slots} < the {slots} unique-"
                     f"image slots this split/batch-size requires")
-            self.image_slots = int(image_slots or slots)
+            multiple = max(1, int(image_slots_multiple))
+            self.image_slots = int(image_slots or -(-slots // multiple) * multiple)
         # Per-item side arrays gathered and padded with the batch.
         self.extras = extras or {}
         for k, v in self.extras.items():
             if len(v) != len(arrays):
                 raise ValueError(f"extras[{k!r}] has {len(v)} rows, the split {len(arrays)}")
         self._epoch = 0
+        self._engine = None
+        if native_prefetch and images is not None and not self.dedup_images:
+            # Dedup batches gather only the unique images: too few to be
+            # worth the double-buffered path.
+            from visuelle2_tpu_torch import native
+
+            self._engine = native.shared_engine()
 
     def __len__(self) -> int:
         n = len(self.arrays)
@@ -97,7 +130,7 @@ class BatchLoader:
         """Pin the next iteration's shuffle to ``(seed, epoch)``."""
         self._epoch = int(epoch)
 
-    def _gather_numpy(self, idx: np.ndarray, pad_to: int) -> Dict[str, np.ndarray]:
+    def _gather_rows(self, idx: np.ndarray, pad_to: int) -> Dict[str, np.ndarray]:
         a = self.arrays
         batch = {"cat": a.cat[idx], "col": a.col[idx], "fab": a.fab[idx],
                  "store": a.store[idx], "temporal": a.temporal[idx],
@@ -113,6 +146,10 @@ class BatchLoader:
         mask[: len(idx)] = 1.0
         batch = {k: _pad_to(v, pad_to) for k, v in batch.items()}
         batch["mask"] = mask
+        return batch
+
+    def _gather_numpy(self, idx: np.ndarray, pad_to: int) -> Dict[str, np.ndarray]:
+        batch = self._gather_rows(idx, pad_to)
         if self.images is None:
             return batch
         if self.dedup_images:
@@ -143,7 +180,14 @@ class BatchLoader:
 
     def _epoch_index_blocks(self):
         if self.dedup_images:
-            return self._split_blocks(self._dedup_order)
+            if not self.shuffle:
+                return self._split_blocks(self._dedup_order)
+            rng = np.random.default_rng(self.seed + self._epoch)
+            self._epoch += 1
+            parts = [rng.permutation(self._groups[g])
+                     for g in rng.permutation(len(self._groups))]
+            order = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+            return self._split_blocks(order)
         order = np.arange(len(self.arrays))
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self._epoch)
@@ -157,5 +201,39 @@ class BatchLoader:
     def iter_from(self, skip_blocks: int) -> Iterator[Batch]:
         """The epoch from batch ``skip_blocks`` on: the skipped batches are
         never assembled (a mid-epoch resume, ``train/loop.py``)."""
-        for idx in self._epoch_index_blocks()[skip_blocks:]:
-            yield self._to_tensors(self._gather_numpy(idx, self.batch_size))
+        blocks = self._epoch_index_blocks()[skip_blocks:]
+        if self._engine is None or not blocks:
+            for idx in blocks:
+                yield self._to_tensors(self._gather_numpy(idx, self.batch_size))
+            return
+        # Double-buffered: the engine gathers batch t + 1's images while
+        # batch t is consumed.
+        pending = None
+        try:
+            # The first submit sits inside the try: the finally must wait for
+            # any gather in flight, since C++ workers write into its buffer.
+            pending = self._submit(blocks[0])
+            for nxt in blocks[1:] + [None]:
+                idx, images, handle = pending
+                pending = None
+                self._engine.wait(handle)
+                batch = self._to_tensors(self._gather_rows(idx, self.batch_size))
+                batch["images"] = images
+                pending = self._submit(nxt) if nxt is not None else None
+                yield batch
+        finally:
+            # An abandoned iterator (``next(iter(loader))``) still lets the
+            # gather in flight finish before its buffer can be freed.
+            if pending is not None:
+                self._engine.wait(pending[2])
+
+    def _submit(self, idx: np.ndarray):
+        """Start gathering ``idx``'s images into a fresh batch-sized buffer
+        (pinned under ``pin_memory``); rows past ``len(idx)`` are zeros."""
+        pixels = self.images.pixels
+        n = len(idx)
+        images = torch.empty((self.batch_size,) + pixels.shape[1:], dtype=torch.uint8,
+                             pin_memory=self.pin_memory)
+        images[n:] = 0
+        img_idx = np.ascontiguousarray(self.images.image_indices(idx), np.int64)
+        return idx, images, self._engine.submit(pixels, img_idx, images[:n].numpy())

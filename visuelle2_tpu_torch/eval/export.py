@@ -31,7 +31,21 @@ flax-layout tree itself keeps that axis right whatever the torch layout
 ``attention._Weights``).  ``load_forecaster`` dequantizes once, at load time,
 as ``q.float() * scale`` with plain torch ops: the same float32 weights, bit
 for bit, as the JAX artifact's dequantization inside every call, without
-paying it per call.  ``w8a8`` (the int8 backbone) is ROADMAP Queue 1 item 14.
+paying it per call.
+
+``quantize="w8a8"`` takes the ``calib`` dict of
+``models/quantized_resnet.py::calibrate_model`` (without one it raises
+``ValueError``, as the JAX exporter does without a calibrated ``apply_fn``).
+It stores every ResNet convolution kernel by the int8 rule (its per-channel
+scale is the engine's weight scale, bit for bit) and every other weight in
+float32, because the w8a8 forward runs them in float32; the header adds
+``w8a8``: the calibration dict and each backbone's block spec by module path.
+``load_forecaster`` dequantizes, then rebuilds each ``W8A8Backbone`` from the
+dequantized kernels with the stored scales: requantizing a dequantized
+per-channel kernel recovers its codes (the JAX exporter's claim, tested), and
+the stored scale keeps ``m`` the bits the exporting process had (a scale
+recomputed from the dequantized kernel may differ by one ulp).  So the
+artifact serves the ``--quantize w8a8`` forecasts bit for bit.
 """
 
 from __future__ import annotations
@@ -54,6 +68,7 @@ from visuelle2_tpu_torch.models.pretrained import (
     load_backbone_npz,
     unflatten_variables,
 )
+from visuelle2_tpu_torch.models.quantized_resnet import backbone_paths, quantized_model
 from visuelle2_tpu_torch.models.registry import build
 
 MAGIC = b"V2TORCHART01"
@@ -155,18 +170,38 @@ def _from_json(overrides: dict) -> dict:
     return out
 
 
+def _w8a8_kernel_keys(backbones: Dict[str, tuple]):
+    """The flat npz keys of every convolution kernel of the backbones
+    (module path -> block spec), by the weight-scale key
+    ``quantized_model`` reads ("<backbone path>.<conv path>")."""
+    keys = {}
+    for path, blocks in backbones.items():
+        convs = ["conv1"]
+        for stage, n_blocks in enumerate(blocks):
+            for b in range(n_blocks):
+                convs += [f"layer{stage + 1}_{b}.conv{i}" for i in (1, 2, 3)]
+                if b == 0:
+                    convs.append(f"layer{stage + 1}_{b}.ds_conv")
+        for conv in convs:
+            dotted = f"{path}.{conv}"
+            keys["params/" + dotted.replace(".", "/") + "/kernel"] = dotted
+    return keys
+
+
 def export_forecaster(model: nn.Module, example_batch: Dict[str, np.ndarray], path: str,
                       quantize: Optional[str] = None, quantize_min_size: int = 4096,
-                      extra_header: Optional[dict] = None) -> int:
-    """Write ``model`` (built by ``models.build``) and the batch contract of
-    ``example_batch`` to ``path``; returns the file's size in bytes.
-    ``extra_header`` goes into the header as ``provenance``: informational
-    for clients, never read by ``load_forecaster``."""
-    if quantize == "w8a8":
-        raise NotImplementedError("quantize='w8a8' (the int8 backbone) is ported in "
-                                  "ROADMAP Queue 1 item 14")
-    if quantize not in (None, "", "none", "int8"):
+                      extra_header: Optional[dict] = None,
+                      calib: Optional[Dict[str, float]] = None) -> int:
+    """Write ``model`` (built by ``models.build``; the float model, also for
+    w8a8) and the batch contract of ``example_batch`` to ``path``; returns
+    the file's size in bytes.  ``extra_header`` goes into the header as
+    ``provenance``: informational for clients, never read by
+    ``load_forecaster``.  ``calib``: the w8a8 calibration."""
+    if quantize not in (None, "", "none", "int8", "w8a8"):
         raise ValueError(f"unsupported quantize mode {quantize!r}")
+    if quantize == "w8a8" and not calib:
+        raise ValueError("quantize='w8a8' needs a calibration "
+                         "(models/quantized_resnet.py::calibrate_model)")
     spec = getattr(model, "build_spec", None)
     if spec is None:
         raise ValueError("export_forecaster needs a model built by models.build "
@@ -175,10 +210,21 @@ def export_forecaster(model: nn.Module, example_batch: Dict[str, np.ndarray], pa
     scales = {}
     if quantize == "int8":
         flat, scales = quantize_int8(flat, quantize_min_size)
+    w8a8 = None
+    if quantize == "w8a8":
+        backbones = backbone_paths(model)
+        if not backbones:
+            raise ValueError("quantize='w8a8' needs a ResNet image backbone")
+        kernels = _w8a8_kernel_keys(backbones)
+        stored, scales = quantize_int8({k: flat[k] for k in kernels}, 0)
+        flat.update(stored)
+        w8a8 = {"calib": dict(calib),
+                "blocks": {p: list(b) for p, b in backbones.items()}}
     header = {
         **signature(example_batch),
         **({"quantize": quantize, "quantized_arrays": len(scales)}
-           if quantize == "int8" else {}),
+           if quantize in ("int8", "w8a8") else {}),
+        **({"w8a8": w8a8} if w8a8 else {}),
         **({"provenance": extra_header} if extra_header else {}),
         "registry": {"name": spec["name"], "overrides": _jsonable(spec["overrides"])},
     }
@@ -196,6 +242,12 @@ def export_forecaster(model: nn.Module, example_batch: Dict[str, np.ndarray], pa
 def read_artifact(path: str) -> Tuple[dict, dict]:
     """``(header, variables)``: the flax-layout tree with the int8 leaves
     dequantized.  A JAX package artifact raises ``ValueError`` naming it."""
+    header, tree, _scales = _read(path)
+    return header, tree
+
+
+def _read(path: str) -> Tuple[dict, dict, dict]:
+    """``read_artifact`` and the int8 leaves' stored scales by flat key."""
     with open(path, "rb") as f:
         magic = f.read(len(MAGIC))
         if magic == JAX_MAGIC:
@@ -214,7 +266,7 @@ def read_artifact(path: str) -> Tuple[dict, dict]:
         for key, scale in scales.items():
             flat[key] = dequantize_int8(flat[key], scale)
         tree = unflatten_variables(flat)
-    return header, tree
+    return header, tree, scales
 
 
 def load_forecaster(path: str, device=None
@@ -222,8 +274,17 @@ def load_forecaster(path: str, device=None
     """Serve an artifact: ``(fn, header)``, ``fn`` as ``make_forecaster``'s on
     ``device`` (``cuda`` unless given; no CPU fallback)."""
     device = resolve_device(device)
-    header, variables = read_artifact(path)
+    header, variables, scales = _read(path)
     reg = header["registry"]
     model = build(reg["name"], device="cpu", **_from_json(reg["overrides"]))
     load_jax_variables(model, variables)
+    if header.get("quantize") == "w8a8":
+        w8a8 = header["w8a8"]
+        have = {p: list(b) for p, b in backbone_paths(model).items()}
+        if have != w8a8["blocks"]:
+            raise ValueError(f"{path}: the artifact's backbones {w8a8['blocks']} are not "
+                             f"the rebuilt model's {have}")
+        kernels = _w8a8_kernel_keys(backbone_paths(model))
+        model = quantized_model(model, w8a8["calib"], {
+            kernels[k]: torch.from_numpy(s).reshape(-1) for k, s in scales.items()})
     return _serving_fn(model, header, device), header

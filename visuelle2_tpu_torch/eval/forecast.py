@@ -11,7 +11,9 @@ scoring pass, batch assembly and copies included.
 then scores with no host copy in the loop; ``False`` copies and scores one
 batch at a time; ``None`` picks one-pass when the split's bytes fit
 ``one_pass_budget_bytes`` (a quarter of the card's memory).  The JAX
-package's ``apply_fn`` (the w8a8 path) arrives with ROADMAP Queue 1 item 14.
+``score_split``'s ``apply_fn`` is the model itself here: the w8a8 path
+scores ``models/quantized_resnet.py::quantized_model``'s copy, so the
+metrics, GFLOPs and forecasts/s are that path's.
 """
 
 from __future__ import annotations

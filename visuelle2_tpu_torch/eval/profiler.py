@@ -7,7 +7,9 @@ buffer assignment).  Eager PyTorch has no compiled program, so here:
 * FLOPs are what ``torch.utils.flop_counter.FlopCounterMode`` counts over
   one forward: matrix products, convolutions and attention, not elementwise
   work, and not the hand-written kernels called through ``ctypes`` (the
-  gated fusion and attention kernels, a small share of a forward);
+  gated fusion and attention kernels, a small share of a forward) — except
+  ``int8_conv``, the whole backbone on the w8a8 path, which reports the
+  operations of its launches (``ops/cuda/int8_conv.py``);
 * peak memory is ``torch.cuda.max_memory_allocated`` over one forward, from
   a reset just before it: the weights, the batch and the activations the
   caching allocator held at once — tensors only, not the allocator's
@@ -22,12 +24,16 @@ from typing import Optional
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from visuelle2_tpu_torch.ops.cuda.int8_conv import int8_conv
+
 
 def batch_flops(model, batch) -> float:
-    """FLOPs of one forward of ``model`` on ``batch`` (flop counter)."""
+    """FLOPs of one forward of ``model`` on ``batch`` (flop counter, and
+    the int8 convolutions' launches)."""
+    int8_ops = int8_conv.kernel_ops
     with torch.inference_mode(), FlopCounterMode(display=False) as counter:
         model(batch)
-    return float(counter.get_total_flops())
+    return float(counter.get_total_flops() + int8_conv.kernel_ops - int8_ops)
 
 
 def peak_memory_bytes(model, batch) -> Optional[int]:

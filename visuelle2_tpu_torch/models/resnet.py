@@ -140,6 +140,7 @@ class ResNetBackbone(nn.Module):
                  dtype=torch.float32, remat: bool = False):
         super().__init__()
         self.remat = remat
+        self.blocks = tuple(blocks)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
         self.bn1 = BatchNorm(64, dtype)
         self.block_names = []

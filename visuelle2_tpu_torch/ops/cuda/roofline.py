@@ -102,3 +102,20 @@ def read_reduce_cost(m: int, k: int):
     partial written per 2048-row tile, one f32 add per element of x."""
     n_bytes = 2 * m * k + 4 * 8 * 128 * (m // TILE_M)
     return n_bytes, m * k
+
+
+def int8_conv_cost(n: int, h: int, w: int, cin: int, cout: int, kernel: int, stride: int,
+                   pad: int, epilogue: str):
+    """The w8a8 backbone's ``int8_conv``: the int8 NHWC activation, the int8
+    weight and the float32 m, z in, the int8 output out (float32 for the
+    "float" epilogue), a float32 addend in for "requant_add".  Operations:
+    2 per multiply-add of the convolution (K = kernel² · Cin, not padded), at
+    the int8 tensor cores' rate."""
+    ho = (h + 2 * pad - kernel) // stride + 1
+    wo = (w + 2 * pad - kernel) // stride + 1
+    rows, k = n * ho * wo, kernel * kernel * cin
+    n_bytes = n * h * w * cin + cout * k + 8 * cout + rows * cout * (
+        4 if epilogue == "float" else 1)
+    if epilogue == "requant_add":
+        n_bytes += 4 * rows * cout
+    return n_bytes, 2 * rows * cout * k
