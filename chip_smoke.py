@@ -255,15 +255,20 @@ list, each run at the place its number gives among those above:
    (``--dedup_images 1``): its ``unique_image_slots``, an epoch's step ms,
    and ``train_transformer.main --dedup_images 1`` for one epoch (a finite
    loss, a best checkpoint);
-16k. w8a8 (after artifact_serve) — ``int8_conv`` (``csrc/int8_conv.cu``)
-   against its plain version at the main path's B=128 on each of
-   ResNet-101's 24 distinct conv launches at 299² (the codes and the
-   "float" epilogue's values exact), and each shape's µs beside its plain
-   version's, its bound and ``torch._int_mm`` on the 1x1 stride-1 GEMMs;
+16k. w8a8 (after artifact_serve) — ``int8_conv`` (``csrc/int8_conv.cu``:
+   ``wgmma`` s8, TMA, the identity shortcut read as int8 in its epilogue,
+   the stem on 4 padded channels) against its plain version at the main
+   path's B=128 on each of ResNet-101's 28 distinct conv launches at 299²
+   (the codes and the "float" epilogue's values exact), and each shape's µs
+   beside its plain version's, its bound and ``torch._int_mm`` on the 1x1
+   stride-1 GEMMs; the forward's bound also as the float32-addend design
+   before this one counted it (3-channel stem, 4-byte shortcut);
    the full-width gated_v4 (bf16 backbone) calibrated on 2 batches
    (``quantized_resnet.build_serving_path``) and served through
    ``make_forecaster``: finite [128, 12] forecasts, exactly 104
-   ``int8_conv`` and 2 ``fused_gated_residual`` launches a forward; its
+   ``int8_conv`` and 2 ``fused_gated_residual`` launches a forward, its
+   device split by operator and kernel with no shortcut pass (``copy_`` and
+   ``mul`` under ``W8A8_SHORTCUT_PASS_MS`` together); its
    backbone on the card at 128 photos equal, on the first two, to the CPU
    plain path prepared from the same calibration; the w8a8 and bf16
    forwards in turns with CUDA events at image duplication 1, 4, 10, 32
@@ -434,6 +439,9 @@ W8A8_CHECK_BATCH = 2     # photos of the backbone's card-vs-CPU check (the CPU's
 W8A8_TIMED_CALLS = 20    # per conv shape at B=128
 W8A8_TIMED_BATCHES = 4   # distinct batches a window, four windows in turns
 W8A8_CALIB_BATCHES = 2
+# The w8a8 forward's copy_ and mul, device ms: the input's quantization and
+# the output's scale.  The identity shortcuts' float32 addend took 10.8 ms.
+W8A8_SHORTCUT_PASS_MS = 1.5
 DATA_PLANE_TURNS = (False, True, True, False)  # native_prefetch, in turns
 DATA_PLANE_PROFILED_STEPS = 3  # a profiler window's train steps (its post-processing is slow)
 
@@ -620,12 +628,17 @@ def _forward_times(model, fn, host_batches, dev, seed, kernel_groups=None,
                         for e in prof.key_averages()
                         if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
                        key=lambda kv: -kv[1])[:8]
-    by_group = {name: sum(e.self_device_time_total for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA
-                          and any(k in e.key for k in keys)) / 2e3
-                for name, keys in (kernel_groups or {}).items()}
+    groups = {name: [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                     and any(k in e.key for k in keys)]
+              for name, keys in (kernel_groups or {}).items()}
+    by_group = {name: sum(e.self_device_time_total for e in es) / 2e3
+                for name, es in groups.items()}
     return {"batch": B, "forward_ms": fwd_ms, "forward_ms_windows": fwd_windows,
             "forward_device_ms_by_kernel_group": by_group,
+            # Records the window kept a forward: below the launches a forward
+            # makes, the window lost some, and its ms read low.
+            "forward_kernel_records_by_group": {name: sum(e.count for e in es) / 2
+                                                for name, es in groups.items()},
             "forecasts_per_s": B / (fwd_ms / 1e3),
             "forward_device_busy_ms": fwd_device_ms,
             "device_idle_share": max(0.0, 1.0 - fwd_device_ms / fwd_ms),
@@ -2545,24 +2558,32 @@ def _artifact_serve_phase(dev, card, zero_counts, counted):
 
 def _int8_conv_inputs(shape, n, gen, dev):
     """Seeded int8 conv inputs of a ``conv_launches`` shape at batch ``n``:
-    codes (signed for the stem, else post-ReLU), weights, per-channel m and
-    z that keep most outputs inside (0, 127), and an addend for
-    "requant_add"."""
+    codes (signed for the stem, its fourth channel zero as the engine pads
+    it; else post-ReLU), weights, per-channel m and z that keep most
+    outputs inside (0, 127), and the epilogue's operands: an addend for
+    "requant_add", the block input's codes and a ratio for
+    "requant_add_identity"."""
+    from visuelle2_tpu_torch.models.quantized_resnet import STEM_CIN
     from visuelle2_tpu_torch.ops.cuda import int8_conv as ic
 
     h, w, cin, cout, k, stride, pad, epilogue = shape
-    x = torch.randint(-127 if cin == 3 else 0, 128, (n, h, w, cin), generator=gen,
+    x = torch.randint(-127 if cin == STEM_CIN else 0, 128, (n, h, w, cin), generator=gen,
                       dtype=torch.int8)
-    wt = ic.pack_weight(torch.randint(-127, 128, (cout, cin, k, k), generator=gen,
-                                      dtype=torch.int8))
+    wt = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, dtype=torch.int8)
+    if cin == STEM_CIN:
+        x[..., 3:] = 0
+        wt[:, 3:] = 0
     m = (torch.rand(cout, generator=gen) + 0.5) * (60.0 / ((k * k * cin) ** 0.5 * 70 * 73))
     z = torch.rand(cout, generator=gen) * 40 - 10
     ho = ic.out_size(h, k, stride, pad)
-    addend = (torch.rand(n, ho, ho, cout, generator=gen) * 60 - 30
-              if epilogue == "requant_add" else None)
-    args = [t.to(dev) for t in (x, wt, m, z)]
-    return args, dict(kernel=k, stride=stride, pad=pad, epilogue=epilogue,
-                      addend=None if addend is None else addend.to(dev))
+    kw = dict(kernel=k, stride=stride, pad=pad, epilogue=epilogue)
+    if epilogue == "requant_add":
+        kw["addend"] = (torch.rand(n, ho, ho, cout, generator=gen) * 60 - 30).to(dev)
+    elif epilogue == "requant_add_identity":
+        kw["shortcut"] = torch.randint(0, 128, (n, ho, ho, cout), generator=gen,
+                                       dtype=torch.int8).to(dev)
+        kw["ratio"] = (torch.rand((), generator=gen) * 0.5 + 0.2).to(dev)
+    return [t.to(dev) for t in (x, ic.pack_weight(wt), m, z)], kw
 
 
 def _host_issue_ms(fn, batches):
@@ -2628,7 +2649,11 @@ def _w8a8_phase(dev, card, zero_counts, counted):
             checks[f"int8_conv {list(shape)} at B={B}: the plain version's values"] = \
                 got.dtype == want.dtype and torch.equal(got, want)
             del got, want
-            n_bytes, ops = roofline.int8_conv_cost(B, h, w, cin, cout, k, stride, pad, epilogue)
+            # The work on the image's 3 channels: the stem's fourth is zeros
+            # that the engine adds for the kernel.
+            work_cin = qr.IMAGE_CIN if cin == qr.STEM_CIN else cin
+            n_bytes, ops = roofline.int8_conv_cost(B, h, w, work_cin, cout, k, stride, pad,
+                                                   epilogue)
             b_ms, b_by = roofline.bound_ms(n_bytes, ops, "int8")
             row = {"launches_per_forward": per_forward[shape], "kernel_us": 1e3 * kernel_ms,
                    "plain_us": 1e3 * plain_ms, "bound_us": 1e3 * b_ms, "bound_by": b_by,
@@ -2650,9 +2675,18 @@ def _w8a8_phase(dev, card, zero_counts, counted):
     one_by_one = [r for r in shapes.values() if r["int_mm_us"] is not None]
     fwd_bytes, fwd_ops = total("bytes"), total("ops")
     fwd_bound_ms, fwd_bound_by = roofline.bound_ms(fwd_bytes, fwd_ops, "int8")
+    # The same forward's bound as the float32-addend design counted its work:
+    # each identity shortcut a float32 addend.
+    earlier_cost = []
+    for _name, h, w, cin, cout, k, stride, pad, epilogue in launches:
+        earlier_cost.append(roofline.int8_conv_cost(
+            B, h, w, qr.IMAGE_CIN if cin == qr.STEM_CIN else cin, cout, k, stride, pad,
+            "requant_add" if epilogue == "requant_add_identity" else epilogue))
     out["per_forward"] = {
         "kernel_ms": total("kernel_us") / 1e3, "plain_ms": total("plain_us") / 1e3,
         "bound_ms": fwd_bound_ms, "bound_by": fwd_bound_by,
+        "bound_ms_float_addend_design": roofline.bound_ms(
+            sum(b for b, _ in earlier_cost), sum(o for _, o in earlier_cost), "int8")[0],
         "sum_of_shape_bounds_ms": total("bound_us") / 1e3,
         "kernel_ms_on_1x1_stride1": total("kernel_us", one_by_one) / 1e3,
         "int_mm_ms_on_1x1_stride1": total("int_mm_us", one_by_one) / 1e3}
@@ -2686,6 +2720,10 @@ def _w8a8_phase(dev, card, zero_counts, counted):
     # Where the w8a8 forward's time goes (128 photos, as phase 6 for bf16).
     out["times"] = _forward_times(qmodel, fn, host_batches, dev, seed=730, kernel_groups={
         "int8_conv": ("int8_conv_kernel",)})
+    by_op = out["times"]["forward_device_ms_by_op"]
+    out["copy_and_mul_ms"] = by_op.get("aten::copy_", 0.0) + by_op.get("aten::mul", 0.0)
+    checks[f"no shortcut pass: copy_ and mul under {W8A8_SHORTCUT_PASS_MS} ms a forward"] = \
+        out["copy_and_mul_ms"] < W8A8_SHORTCUT_PASS_MS
 
     # The backbone on the card, at the main path's 128 photos, against the
     # CPU plain path from the same calibration on the first two of them: the
@@ -3755,6 +3793,8 @@ def main():
         "replaces": "visuelle2_tpu/models/quantized_resnet.py:86",
         "replaces_note": "the JAX engine's XLA convolution (int32 sums, its epilogue fused "
                          "by XLA); no pl.pallas_call",
+        "status": "redesigned for Hopper: wgmma s8 fed by TMA, the identity shortcut "
+                  "read as int8, the stem's 4-byte gather",
         "launches": w8a8["launches"], "launches_per_forward": w8a8["launches"] / N_FWD,
         "max_abs_err": w8a8["max_abs_err"], "tol": 0,
         "timed_by": "per forward at B=128: each distinct shape's CUDA-event time "

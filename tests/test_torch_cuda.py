@@ -696,42 +696,88 @@ def test_probe_kernels_no_fallback_without_the_kernel(monkeypatch, module, call)
 # -- the w8a8 backbone's int8 convolution (no TPU kernel: XLA in JAX) ----------------
 
 INT8_SHAPES = sorted({c[1:] for c in tqr.conv_launches(STAGE_BLOCKS["resnet101"], 299)})
+# Beyond ResNet-101's 28 at B = 2: a ragged M (TMA's zero rows and the
+# gathers' padding rows), Cout = 64 with K = 64 on the TMA path, K = 64 on
+# the gather path, a 1x1 stride-1 conv past 256 columns, and the stem at a
+# small size (its 4-byte gather), each with every epilogue that the model
+# gives such a conv.
+INT8_EXTRA = [
+    (1, 7, 9, 64, 64, 1, 1, 0, "requant"),              # M = 63, K = 64, Cout = 64
+    (1, 7, 9, 64, 256, 1, 1, 0, "requant_add_identity"),
+    (3, 11, 13, 64, 128, 3, 2, 1, "requant"),           # gather16, K = 576, ragged M
+    (2, 5, 5, 128, 512, 1, 1, 0, "requant_add"),
+    (3, 5, 7, 32, 192, 1, 2, 0, "float"),               # Cout = 192: the 64-wide tile
+    (2, 21, 17, 4, 64, 7, 2, 3, "requant"),             # the padded stem, ragged M
+]
 
 
 def _int8_conv_inputs(shape, n=2, seed=0):
+    """(x, w, m, z), the epilogue's operands, and the keyword arguments;
+    ``shape`` is a ``conv_launches`` shape (batch ``n``) or has its batch
+    first."""
+    if len(shape) == 9:
+        n, shape = shape[0], shape[1:]
     h, w, cin, cout, k, stride, pad, epilogue = shape
     g = torch.Generator().manual_seed(seed)
-    x = torch.randint(-127 if cin == 3 else 0, 128, (n, h, w, cin), generator=g,
+    x = torch.randint(-127 if cin <= 4 else 0, 128, (n, h, w, cin), generator=g,
                       dtype=torch.int8)
     wt = tic.pack_weight(torch.randint(-127, 128, (cout, cin, k, k), generator=g,
                                        dtype=torch.int8))
     m = (torch.rand(cout, generator=g) + 0.5) * (60.0 / ((k * k * cin) ** 0.5 * 70 * 73))
     z = torch.rand(cout, generator=g) * 40 - 10
-    ho = tic.out_size(h, k, stride, pad)
-    addend = (torch.rand(n, ho, ho, cout, generator=g) * 60 - 30
-              if epilogue == "requant_add" else None)
+    ho, wo = tic.out_size(h, k, stride, pad), tic.out_size(w, k, stride, pad)
+    operands = {}
+    if epilogue == "requant_add":
+        operands["addend"] = torch.rand(n, ho, wo, cout, generator=g) * 60 - 30
+    elif epilogue == "requant_add_identity":
+        operands["shortcut"] = torch.randint(0, 128, (n, ho, wo, cout), generator=g,
+                                             dtype=torch.int8)
+        operands["ratio"] = torch.rand((), generator=g) * 0.5 + 0.1
     kw = dict(kernel=k, stride=stride, pad=pad, epilogue=epilogue)
-    return (x, wt, m, z), addend, kw
+    return (x, wt, m, z), operands, kw
 
 
-@pytest.mark.parametrize("shape", INT8_SHAPES, ids=str)
-def test_int8_conv_matches_plain_on_every_resnet101_shape(shape):
-    """Every distinct conv launch of a ResNet-101 forward at 299², at B=2:
-    the codes (and the "float" epilogue's values) bit-equal to the plain
-    version's on the card and on the CPU."""
-    args, addend, kw = _int8_conv_inputs(shape)
+def _check_int8_conv(shape):
+    args, operands, kw = _int8_conv_inputs(shape)
     cuda = [t.cuda() for t in args]
+    cuda_ops = {k: v.cuda() for k, v in operands.items()}
     launches = tic.int8_conv.launches
-    got = tic.int8_conv(*cuda, addend=None if addend is None else addend.cuda(), **kw)
+    got = tic.int8_conv(*cuda, **cuda_ops, **kw)
     torch.cuda.synchronize()
     assert tic.int8_conv.launches == launches + 1
-    want = tic.int8_conv_plain(*cuda, addend=None if addend is None else addend.cuda(), **kw)
-    assert torch.equal(got, want)
-    assert torch.equal(want.cpu(), tic.int8_conv_plain(*args, addend=addend, **kw))
+    want = tic.int8_conv_plain(*cuda, **cuda_ops, **kw)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(want.cpu(), tic.int8_conv_plain(*args, **operands, **kw))
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES + INT8_EXTRA, ids=str)
+def test_int8_conv_matches_plain_on_every_resnet101_shape(shape):
+    """Every distinct conv launch of a ResNet-101 forward at 299², at B=2,
+    and the edge cases of INT8_EXTRA: the codes (and the "float" epilogue's
+    values) bit-equal to the plain version's on the card and on the CPU."""
+    _check_int8_conv(shape)
+
+
+_TILE_WIDTH_SHAPES = [
+    (2, 9, 9, 256, 256, 1, 1, 0, "requant_add_identity"),   # TMA
+    (2, 9, 9, 256, 256, 3, 1, 1, "requant"),                # gather16
+    (2, 13, 11, 4, 256, 7, 2, 3, "float"),                  # gather4
+]
+
+
+@pytest.mark.parametrize("shape, bn, coop", [
+    (shape, bn, coop) for shape in _TILE_WIDTH_SHAPES
+    for bn, coop in tic.TILE_PLANS[tic.producer_mode(shape[3], *shape[5:8])]], ids=str)
+def test_int8_conv_every_tile_width(monkeypatch, shape, bn, coop):
+    """Each tiling the kernel has (``TILE_PLANS``: the column tile, ping-pong
+    or cooperative) in each of the producer's modes."""
+    monkeypatch.setattr(tic, "launch_plan", lambda *args: (bn, coop))
+    _check_int8_conv(shape)
 
 
 def test_w8a8_backbone_on_card_makes_104_launches_and_matches_cpu():
-    """ResNet-101 at 64², B=2: one int8_conv launch per conv (104), and the
+    """ResNet-101 at 64², B=2: one int8_conv launch per conv (104), their
+    operations counted with the stem on the image's 3 channels, and the
     codes the CPU plain path gives from the same calibration."""
     torch.manual_seed(0)
     bb = ResNetBackbone(STAGE_BLOCKS["resnet101"]).eval()
@@ -743,9 +789,14 @@ def test_w8a8_backbone_on_card_makes_104_launches_and_matches_cpu():
     card = tqr.W8A8Backbone(bb, calib).cuda()
     with torch.inference_mode():
         want = cpu(x)
-        launches = tic.int8_conv.launches
+        launches, ops = tic.int8_conv.launches, tic.int8_conv.kernel_ops
         got = card(x.cuda())
         assert tic.int8_conv.launches - launches == 104
+    want_ops = sum(2 * 2 * tic.out_size(h, k, s, p) ** 2 * cout * k * k
+                   * (tqr.IMAGE_CIN if cin == tqr.STEM_CIN else cin)
+                   for _, h, _, cin, cout, k, s, p, _ in tqr.conv_launches(
+                       STAGE_BLOCKS["resnet101"], 64))
+    assert tic.int8_conv.kernel_ops - ops == want_ops
     assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
 
 
@@ -753,7 +804,8 @@ def test_int8_conv_no_fallback_without_the_kernel(monkeypatch):
     def no_library():
         raise RuntimeError("kernel library unavailable")
 
-    args, _, kw = _int8_conv_inputs(INT8_SHAPES[0])
+    args, operands, kw = _int8_conv_inputs(INT8_SHAPES[0])
+    assert not operands
     monkeypatch.setattr(_build, "load_library", no_library)
     tic._kernel.cache_clear()
     try:

@@ -129,14 +129,18 @@ def test_prepare_matches_jax_bit_for_bit():
         name, _, conv = path.partition(".")
         g = got[name][conv] if conv else got[name]
         qw = ic.unpack_weight(g["w"], g["cin"], g["kernel"]).permute(2, 3, 1, 0)
-        np.testing.assert_array_equal(qw.numpy(), np.asarray(e["qw"]), err_msg=path)
+        # The stem's input channels padded by zero weights (qr.STEM_CIN).
+        np.testing.assert_array_equal(qw[:, :, :cin].numpy(), np.asarray(e["qw"]),
+                                      err_msg=path)
+        assert not qw[:, :, cin:].any()
         for k in ("m", "z"):
             np.testing.assert_array_equal(g[k].numpy(), np.asarray(e[k]), err_msg=f"{path} {k}")
-        assert g["cin"] == cin and g["w"].shape[1] % 32 == 0
+        assert g["cin"] == (qr.STEM_CIN if path == "stem" else cin)
+        assert g["w"].shape[1] % 32 == 0
         convs += 1
     assert convs == 1 + 3 * sum(BLOCKS) + 4
     assert got["layer1_1"]["sc_ratio"] == want["layer1_1"]["sc_ratio"]
-    assert got["stem"]["w"].shape == (64, 160)  # K = 147 padded to 160
+    assert got["stem"]["w"].shape == (64, 224)  # K = 7 x 7 x 4 = 196, padded to 224
 
 
 def _prefixes():
@@ -368,6 +372,7 @@ def _conv_reference(x, w_oihw, stride, pad):
 @pytest.mark.parametrize("epilogue", sorted(ic.EPILOGUES))
 @pytest.mark.parametrize("shape", [
     (2, 17, 19, 3, 64, 7, 2, 3),     # the stem: K = 147, padded to 160
+    (2, 17, 19, 4, 64, 7, 2, 3),     # the stem as launched, padded to 4 channels
     (2, 9, 9, 64, 64, 3, 1, 1), (2, 10, 10, 32, 128, 3, 2, 1),
     (1, 8, 8, 48, 96, 1, 2, 0), (3, 5, 5, 16, 8, 1, 1, 0)], ids=str)
 def test_int8_conv_plain_equals_an_integer_reference(shape, epilogue):
@@ -380,21 +385,56 @@ def test_int8_conv_plain_equals_an_integer_reference(shape, epilogue):
     m = (rng.uniform(0.5, 1.5, cout) * scale).astype(np.float32)
     z = rng.uniform(-20, 60, cout).astype(np.float32)
     addend = rng.uniform(-30, 30, out_shape).astype(np.float32)
+    shortcut = rng.integers(0, 128, out_shape).astype(np.int8)
+    ratio = np.float32(rng.uniform(0.2, 0.5))
     f = acc.reshape(out_shape).astype(np.float32) * m + z  # float32: multiply, then add
     if epilogue == "float":
         want = f
     else:
         if epilogue == "requant_add":
             f = f + addend
+        elif epilogue == "requant_add_identity":
+            f = f + shortcut.astype(np.float32) * ratio
         want = np.clip(np.rint(f), 0, 127).astype(np.int8)
+    operands = {"requant_add": dict(addend=torch.from_numpy(addend)),
+                "requant_add_identity": dict(shortcut=torch.from_numpy(shortcut),
+                                             ratio=torch.tensor(ratio))}.get(epilogue, {})
     got = ic.int8_conv(torch.from_numpy(x), ic.pack_weight(torch.from_numpy(w)),
                        torch.from_numpy(m), torch.from_numpy(z), kernel=k, stride=stride,
-                       pad=pad, epilogue=epilogue,
-                       addend=torch.from_numpy(addend) if epilogue == "requant_add" else None)
+                       pad=pad, epilogue=epilogue, **operands)
     assert got.dtype == (torch.float32 if epilogue == "float" else torch.int8)
     np.testing.assert_array_equal(got.numpy(), want)
     if epilogue != "float":
         assert 0 < np.count_nonzero(want) and np.count_nonzero(want == 127) < want.size // 2
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_identity_epilogue_equals_requant_add_of_the_rescaled_codes(seed):
+    """The identity shortcut's epilogue gives the bits of the float32 addend
+    it replaces, ``requantize(acc, m, z, "requant_add", q.float() * ratio)``,
+    on codes that include 0 and 127 and sums that land on halves."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(0, 128, (2, 6, 7, 32)).astype(np.int8))
+    w = ic.pack_weight(torch.from_numpy(rng.integers(-127, 128, (64, 32, 1, 1))
+                                        .astype(np.int8)))
+    q = rng.integers(0, 128, (2, 6, 7, 64)).astype(np.int8)
+    q.reshape(-1)[:2] = (0, 127)
+    shortcut = torch.from_numpy(q)
+    # m and z powers of two, ratio 0.5 or 1.5: acc·m + z + q·ratio is exact
+    # and lands on .5 where q is odd, so rint's halves to even are exercised.
+    m = torch.full((64,), 2.0 ** -9)
+    z = torch.from_numpy(rng.integers(-8, 8, 64).astype(np.float32))
+    for ratio in (0.5, 1.5, float(np.float32(rng.uniform(0.1, 2.0)))):
+        r = torch.tensor(ratio, dtype=torch.float32)
+        got = ic.int8_conv(x, w, m, z, kernel=1, stride=1, pad=0,
+                           epilogue="requant_add_identity", shortcut=shortcut, ratio=r)
+        acc = ic.int8_conv_plain(x, w, torch.ones(64), torch.zeros(64), kernel=1, stride=1,
+                                 pad=0, epilogue="float").round().to(torch.int32)
+        want = ic.requantize(acc, m, z, "requant_add", shortcut.float() * r)
+        assert got.dtype == torch.int8 and torch.equal(got, want)
+        f = (acc.float() * m + z + shortcut.float() * r)
+        assert ((f - f.floor()) == 0.5).any() or ratio not in (0.5, 1.5)
+        assert (got == 0).any() and (got == 127).any()
 
 
 def test_int8_conv_refusals():
@@ -409,9 +449,95 @@ def test_int8_conv_refusals():
         ic.int8_conv(x, w, mz, mz, kernel=3, stride=1, pad=1, epilogue="requant_add")
     with pytest.raises(ValueError, match="int8"):
         ic.int8_conv(x.float(), w, mz, mz, kernel=3, stride=1, pad=1, epilogue="requant")
+    # The identity epilogue: its shortcut and ratio, both, and only with it.
+    sc, ratio = torch.zeros(1, 4, 4, 64, dtype=torch.int8), torch.tensor(0.5)
+    identity = dict(kernel=3, stride=1, pad=1, epilogue="requant_add_identity")
+    with pytest.raises(ValueError, match="shortcut"):
+        ic.int8_conv(x, w, mz, mz, ratio=ratio, **identity)  # no shortcut
+    with pytest.raises(ValueError, match="shortcut"):
+        ic.int8_conv(x, w, mz, mz, shortcut=sc, **identity)  # no ratio
+    with pytest.raises(ValueError, match="shortcut must be int8"):
+        ic.int8_conv(x, w, mz, mz, shortcut=sc.float(), ratio=ratio, **identity)
+    with pytest.raises(ValueError, match="shortcut must be int8"):
+        ic.int8_conv(x, w, mz, mz, shortcut=sc[..., :32], ratio=ratio, **identity)
+    for bad in (0.5, torch.tensor(0.5, dtype=torch.float64), torch.tensor([0.5])):
+        with pytest.raises(ValueError, match="ratio must be a float32 scalar"):
+            ic.int8_conv(x, w, mz, mz, shortcut=sc, ratio=bad, **identity)
+    with pytest.raises(ValueError, match="shortcut"):
+        ic.int8_conv(x, w, mz, mz, kernel=3, stride=1, pad=1, epilogue="requant",
+                     shortcut=sc, ratio=ratio)
     launches = ic.int8_conv.launches
     ic.int8_conv(x, w, mz, mz, kernel=3, stride=1, pad=1, epilogue="requant")
+    ic.int8_conv(x, w, mz, mz, shortcut=sc, ratio=ratio, **identity)
+    ic.int8_conv(torch.zeros(1, 9, 9, 12, dtype=torch.int8),  # the CPU takes any Cin and K
+                 ic.pack_weight(torch.zeros(64, 12, 11, 11, dtype=torch.int8)), mz, mz,
+                 kernel=11, stride=1, pad=5, epilogue="requant")
     assert ic.int8_conv.launches == launches  # the CPU runs the plain version
+
+
+@pytest.mark.parametrize("cout, kernel, stride, epilogue, want", [
+    (256, 3, 1, "requant", (256, True)),       # a 3x3 conv: 128 x 256 tiles, shared
+    (1024, 1, 2, "float", (256, True)),        # a strided downsample conv
+    (1024, 1, 1, "requant_add_identity", (128, True)),   # a conv3
+    (192, 1, 1, "requant", (64, True)),        # 192: only 64 divides it
+    (64, 3, 1, "requant", (64, False)),        # layer 1's 3x3: 256 x 64 in turns
+    (64, 7, 2, "requant", (64, False))])       # the stem: likewise
+def test_launch_plan(cout, kernel, stride, epilogue, want):
+    assert ic.launch_plan(cout, kernel, stride, epilogue) == want
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ic.launch_plan(96, kernel, stride, epilogue)
+
+
+def test_launch_plan_returns_a_tiling_the_kernel_has():
+    """Every plan ``launch_plan`` gives, for ResNet-101's launches and a grid
+    of other shapes, is one of the kernel's instantiations (``TILE_PLANS``):
+    ping-pong only at BN = 64, TMA never at 256."""
+    from visuelle2_tpu_torch.models.resnet import STAGE_BLOCKS
+
+    shapes = {c[3:] for c in qr.conv_launches(STAGE_BLOCKS["resnet101"], 299)}
+    shapes |= {(cin, cout, k, s, p, e) for cin in (4, 16, 64) for cout in (64, 192, 256, 512)
+               for k, p in ((1, 0), (3, 1), (7, 3)) for s in (1, 2) for e in ic.EPILOGUES}
+    assert len(shapes) > 100
+    for cin, cout, k, stride, pad, epilogue in shapes:
+        plan = ic.launch_plan(cout, k, stride, epilogue)
+        assert plan in ic.TILE_PLANS[ic.producer_mode(cin, k, stride, pad)], (cin, cout, k)
+
+
+def test_stem_work_leaves_out_its_zero_channel():
+    """The stem's bound and its counted operations are a 3-channel conv's:
+    ``roofline.int8_conv_cost`` at ``IMAGE_CIN``; ``int8_conv`` takes the
+    zero channels' count as ``pad_channels`` and refuses one outside
+    0..Cin - 1."""
+    from visuelle2_tpu_torch.ops.cuda import roofline
+
+    rows = 128 * 150 * 150
+    n_bytes, ops = roofline.int8_conv_cost(128, 299, 299, qr.IMAGE_CIN, 64, 7, 2, 3, "requant")
+    assert ops == 2 * rows * 64 * 147
+    assert n_bytes == 128 * 299 * 299 * 3 + 64 * 147 + 8 * 64 + rows * 64
+    x = torch.zeros(1, 9, 9, qr.STEM_CIN, dtype=torch.int8)
+    w = ic.pack_weight(torch.zeros(64, qr.STEM_CIN, 7, 7, dtype=torch.int8))
+    mz = torch.zeros(64)
+    stem = dict(kernel=7, stride=2, pad=3, epilogue="requant")
+    assert torch.equal(ic.int8_conv(x, w, mz, mz, pad_channels=1, **stem),
+                       ic.int8_conv(x, w, mz, mz, **stem))
+    for bad in (-1, qr.STEM_CIN):
+        with pytest.raises(ValueError, match="pad_channels"):
+            ic.int8_conv(x, w, mz, mz, pad_channels=bad, **stem)
+
+
+def test_conv_launches_name_what_the_kernel_is_given():
+    """ResNet-101's 104 launches: the stem on 4 channels, 29 identity conv3s
+    on their int8 shortcut, 4 with the downsample's float one: 28 distinct
+    shapes.  ResNet-50 makes 53."""
+    from visuelle2_tpu_torch.models.resnet import STAGE_BLOCKS
+
+    launches = qr.conv_launches(STAGE_BLOCKS["resnet101"], 299)
+    epilogues = [c[-1] for c in launches]
+    assert len(launches) == 104 and len({c[1:] for c in launches}) == 28
+    assert launches[0][1:] == (299, 299, qr.STEM_CIN, 64, 7, 2, 3, "requant")
+    assert epilogues.count("requant_add_identity") == 29
+    assert epilogues.count("requant_add") == epilogues.count("float") == 4
+    assert len(qr.conv_launches(STAGE_BLOCKS["resnet50"], 299)) == 53
 
 
 def test_w8a8_trained_tool_runs_at_a_tiny_size(tmp_path):
@@ -425,3 +551,18 @@ def test_w8a8_trained_tool_runs_at_a_tiny_size(tmp_path):
     assert res["card"] == "cpu" and res["w8a8"]["wape"] != res["float"]["wape"]
     assert 0 < res["forecast_rel_l2"] < 0.2
     assert any(x.startswith("[w8a8] int8 backbone") for x in res["log_tail"])
+
+
+def test_int8_split_variants_apply_to_the_kernel_source():
+    """perf/int8_split.py's variants each edit csrc/int8_conv.cu (every edit
+    found, each variant a different source), and a source that lost a line
+    a variant replaces is refused."""
+    from visuelle2_tpu_torch.perf import int8_split, variants
+
+    text = int8_split.SOURCE.read_text()
+    sources = variants.variant_sources(text, int8_split.VARIANTS, int8_split.SOURCE)
+    assert set(sources) == set(int8_split.VARIANTS) and sources["whole"] == text
+    assert len(set(sources.values())) == len(sources)
+    old, _ = int8_split.VARIANTS["no_epilogue"][0]
+    with pytest.raises(RuntimeError, match="no_epilogue"):
+        variants.variant_sources(text.replace(old, ""), int8_split.VARIANTS, int8_split.SOURCE)

@@ -43,6 +43,11 @@ from visuelle2_tpu_torch.models.resnet import ResNetBackbone
 from visuelle2_tpu_torch.ops.cuda.int8_conv import int8_conv, out_size, pack_weight
 
 EPS = 1e-5  # BatchNorm2d's, as the JAX engine's _EPS
+# The stem's input channels as int8_conv takes them: the image's 3 and a zero
+# channel (packed with zero weights, so the sums do not change), which lets
+# the kernel move each tap's channels as one 4-byte copy.
+STEM_CIN = 4
+IMAGE_CIN = 3  # the image's channels: the stem's work (its bound, its operations)
 
 # The largest image duplication (batch rows / unique images) at which the
 # w8a8 forward measured faster than the bf16 one on the card: gated_v4 at
@@ -73,9 +78,11 @@ def block_specs(blocks):
 def conv_launches(blocks, image_size: int):
     """``(name, h, w, cin, cout, kernel, stride, pad, epilogue)`` of every
     ``int8_conv`` launch of one forward at ``image_size``², in order: the
-    stem, then conv1, conv2, the downsample conv (first block of a stage)
-    and conv3 of each bottleneck.  ResNet-101 makes 104, ResNet-50 53."""
-    out = [("stem", image_size, image_size, 3, 64, 7, 2, 3, "requant")]
+    stem (its input padded to ``STEM_CIN`` channels), then conv1, conv2, the
+    downsample conv (first block of a stage) and conv3 of each bottleneck
+    (with the downsample's float shortcut, else the identity's int8 codes).
+    ResNet-101 makes 104, ResNet-50 53."""
+    out = [("stem", image_size, image_size, STEM_CIN, 64, 7, 2, 3, "requant")]
     h = out_size(out_size(image_size, 7, 2, 3), 3, 2, 1)  # the stem, its max pool
     cin = 64
     for name, w, stride, ds in block_specs(blocks):
@@ -84,7 +91,8 @@ def conv_launches(blocks, image_size: int):
                 (f"{name}.conv2", h, h, w, w, 3, stride, 1, "requant")]
         if ds:
             out.append((f"{name}.ds", h, h, cin, 4 * w, 1, stride, 0, "float"))
-        out.append((f"{name}.conv3", h2, h2, w, 4 * w, 1, 1, 0, "requant_add"))
+        out.append((f"{name}.conv3", h2, h2, w, 4 * w, 1, 1, 0,
+                    "requant_add" if ds else "requant_add_identity"))
         h, cin = h2, 4 * w
     return out
 
@@ -163,7 +171,8 @@ def _f32(v: float) -> torch.Tensor:
 def prepare(backbone: ResNetBackbone, calib: Dict[str, float],
             weight_scales: Optional[Dict[str, torch.Tensor]] = None) -> dict:
     """The int8 execution tree on the CPU: per conv ``w`` (packed,
-    ``ops/cuda/int8_conv.pack_weight``), ``cin``, ``kernel``, ``m``, ``z``;
+    ``ops/cuda/int8_conv.pack_weight``; the stem's with its input channels
+    padded to ``STEM_CIN`` by zeros), ``cin``, ``kernel``, ``m``, ``z``;
     per identity block ``sc_ratio``; ``input_scale`` and ``out_scale`` as
     Python doubles.  ``weight_scales`` maps a conv's module path in the
     backbone ("layer1_0.conv1") to a stored per-channel scale."""
@@ -172,15 +181,17 @@ def prepare(backbone: ResNetBackbone, calib: Dict[str, float],
     def s_act(name):
         return max(float(calib[name]), 1e-12) / 127.0
 
-    def conv_entry(path, conv, bn, s_prev, s_out):
+    def conv_entry(path, conv, bn, s_prev, s_out, cin=None):
         qw, sw = _qweight(conv.weight, weight_scales.get(path))
+        if cin is not None:
+            qw = F.pad(qw, (0, 0, 0, 0, 0, cin - qw.shape[1]))
         a, b = _affine(bn, "cpu")
         return {"w": pack_weight(qw), "cin": qw.shape[1], "kernel": qw.shape[2],
                 "m": _f32(s_prev) * sw * a / _f32(s_out), "z": b / _f32(s_out)}
 
     s_in, s_stem = s_act("input"), s_act("stem")
     qt = {"blocks": tuple(backbone.blocks), "input_scale": s_in,
-          "stem": conv_entry("conv1", backbone.conv1, backbone.bn1, s_in, s_stem)}
+          "stem": conv_entry("conv1", backbone.conv1, backbone.bn1, s_in, s_stem, STEM_CIN)}
     s_prev = s_stem
     for name, _w, stride, ds in block_specs(backbone.blocks):
         blk = getattr(backbone, name)
@@ -220,9 +231,9 @@ def to_device(qt: dict, device) -> dict:
 # int8 execution
 # --------------------------------------------------------------------------
 
-def _conv(q, e, stride, pad, epilogue, addend=None):
+def _conv(q, e, stride, pad, epilogue, **operands):
     return int8_conv(q, e["w"], e["m"], e["z"], kernel=e["kernel"], stride=stride,
-                     pad=pad, epilogue=epilogue, addend=addend)
+                     pad=pad, epilogue=epilogue, **operands)
 
 
 def _max_pool(q):
@@ -237,15 +248,20 @@ def apply_quantized(qt: dict, x: torch.Tensor, dtype=torch.float32) -> torch.Ten
     """The int8 backbone on a normalized NHWC image batch -> the NHWC
     feature map in ``dtype`` (the codes times the output scale).  ``qt`` is
     ``to_device(prepare(...), x.device)``."""
-    q = torch.clamp(torch.round(x.float() / qt["input_scale"]), -127, 127)
-    q = q.to(torch.int8).contiguous()
-    q = _max_pool(_conv(q, qt["stem"], 2, 3, "requant"))
+    q = torch.clamp(torch.round(x.float() / qt["input_scale"]), -127, 127).to(torch.int8)
+    zeros = qt["stem"]["cin"] - q.shape[3]
+    q = F.pad(q, (0, zeros))  # the stem's zero channel
+    q = _max_pool(_conv(q, qt["stem"], 2, 3, "requant", pad_channels=zeros))
     for name, _w, stride, ds in block_specs(qt["blocks"]):
         e = qt[name]
         q1 = _conv(q, e["conv1"], 1, 0, "requant")
         q2 = _conv(q1, e["conv2"], stride, 1, "requant")
-        sc = _conv(q, e["ds"], stride, 0, "float") if ds else q.float() * e["sc_ratio"]
-        q = _conv(q2, e["conv3"], 1, 0, "requant_add", addend=sc)
+        if ds:
+            sc = _conv(q, e["ds"], stride, 0, "float")
+            q = _conv(q2, e["conv3"], 1, 0, "requant_add", addend=sc)
+        else:  # the kernel rescales the block input's codes in its epilogue
+            q = _conv(q2, e["conv3"], 1, 0, "requant_add_identity", shortcut=q,
+                      ratio=e["sc_ratio"])
     # The scale rounded to ``dtype`` on the host, then a Python scalar: no
     # copy to the card, and the JAX product's bits (``dtype`` x ``dtype``).
     return q.to(dtype) * torch.tensor(qt["out_scale"], dtype=dtype).item()

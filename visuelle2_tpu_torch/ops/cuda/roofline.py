@@ -108,9 +108,12 @@ def int8_conv_cost(n: int, h: int, w: int, cin: int, cout: int, kernel: int, str
                    pad: int, epilogue: str):
     """The w8a8 backbone's ``int8_conv``: the int8 NHWC activation, the int8
     weight and the float32 m, z in, the int8 output out (float32 for the
-    "float" epilogue), a float32 addend in for "requant_add".  Operations:
-    2 per multiply-add of the convolution (K = kernel² · Cin, not padded), at
-    the int8 tensor cores' rate."""
+    "float" epilogue); a float32 addend in for "requant_add", the int8
+    shortcut and the float32 ratio for "requant_add_identity".  Operations:
+    2 per multiply-add of the convolution (K = kernel² · Cin, not padded),
+    at the int8 tensor cores' rate.  ``cin`` is the function's: the stem's
+    is the image's 3 channels, not the 4 the kernel is given (the fourth is
+    zeros that the engine adds for the kernel's 4-byte copies)."""
     ho = (h + 2 * pad - kernel) // stride + 1
     wo = (w + 2 * pad - kernel) // stride + 1
     rows, k = n * ho * wo, kernel * kernel * cin
@@ -118,4 +121,6 @@ def int8_conv_cost(n: int, h: int, w: int, cin: int, cout: int, kernel: int, str
         4 if epilogue == "float" else 1)
     if epilogue == "requant_add":
         n_bytes += 4 * rows * cout
+    elif epilogue == "requant_add_identity":
+        n_bytes += rows * cout + 4
     return n_bytes, 2 * rows * cout * k

@@ -39,8 +39,8 @@ def build_variants(kernels: dict) -> dict:
             cu = _build.BUILD_DIR / f"split_{tag}_{name}.cu"
             cu.write_text(src)
             paths[tag, name] = _build.BUILD_DIR / f"split_{tag}_{name}.so"
-            cmds.append([nvcc, *_build.COMPILE_FLAGS, "-shared", str(cu), "-o",
-                         str(paths[tag, name])])
+            cmds.append([nvcc, *_build.COMPILE_FLAGS, "-I", str(_build.SRC_DIR), "-shared",
+                         str(cu), "-o", str(paths[tag, name])])
     _build._run_all(cmds)
     libs = {tag: {} for tag in kernels}
     for (tag, name), path in paths.items():
