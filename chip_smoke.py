@@ -43,8 +43,8 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    held to the same model on the CPU in f32;
 9. times_v2     — gated_v2's forward times as in 6;
 10. mha_kernel_times — per variant at the main-path shape, the kernel's and
-   the plain version's device time per launch and time per call, and the
-   bound;
+   the plain version's device time per launch and time per call over
+   ``PROFILE_CALLS`` calls each, and the bound;
 11. additive_kernel — ``fused_additive_attention`` (a 3xTF32 tensor-core
    GEMM launch and an energy/softmax/scaling launch per call) against its
    plain version (TF32 off, atol 2e-5, rtol 1e-5 on the output and α), both
@@ -116,11 +116,11 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    stages unmoved, 2 launches a step;
 16e. train — the full-width gated_v4 (bf16 backbone, B=128): the train step
    through ``Trainer`` (CUDA events over 8 distinct batches, the median of
-   three windows, each printed; samples/s; the optimizer step's device and
+   two windows, each printed; samples/s; the optimizer step's device and
    host ms; device busy and idle share, top operators and kernels from the
    profiler; peak memory; the same with ``--remat``), then
-   ``train_transformer.main`` on a synthetic split under ``build/`` (1,024
-   train rows, 8 steps an epoch, the forecast_cli phase's 1,000 test rows,
+   ``train_transformer.main`` on a synthetic split under ``build/`` (512
+   train rows, 4 steps an epoch, the forecast_cli phase's 1,000 test rows,
    2 epochs, ``--learning_rate 1e-3``, ``--trace_dir``): finite losses,
    exactly 2 ``fused_gated_residual`` launches a train step and an eval
    forward, no host sync inside a step, the checkpoint slots,
@@ -130,6 +130,23 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    and epochs; ``forecast_transformer.main --ckpt_path`` on the best epoch
    prints a WAPE within 1e-4 relative of that epoch's logged
    ``val_wWAPE``;
+16e''. data_parallel (after train) — the data-parallel ``Trainer``
+   (``parallel/``) at full width (gated_v4, ResNet-101 at 299², bf16
+   backbone, E=32, H=64, global B=128): (a) one NCCL rank on ``make_mesh()``
+   against the plain ``Trainer`` built from the same seed, over the same 4
+   distinct batches (cuDNN's deterministic algorithms in both): the losses,
+   parameters and buffers bit for bit, no host sync in a step, 2
+   ``fused_gated_residual`` launches a step and no other kernel, ms a step
+   of both in turns (plain, data parallel, data parallel, plain) by CUDA
+   events; the process group destroyed after; (b) ``parallel.demo_multihost``
+   spawned as two gloo ranks on the one card (64 rows each of one 128-row
+   global batch, 2 steps, dropout on, ``--learning_rate`` 1e-3) and as one
+   process, each with its own time limit: both ranks' losses and eval sums
+   equal, the losses within ``DP_RTOL`` of one process, the frozen stages
+   unmoved, the float noise elements within their noise steps, each
+   parameter's movement against one process by ``_compare_training``'s
+   rules reported by group (the backbone's BatchNorms, its convolutions,
+   the rest), and the kernel library not rebuilt by the children;
 16e'. artifact_serve — the serving path from a full-width gated_v4
    checkpoint (seeded weights saved as ``train_transformer`` saves them,
    with its ``hparams.json``; bf16 backbone, B=128): ``cli.export`` (no
@@ -188,9 +205,10 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    launches per call and per forward, and the bounds (float32-accurate:
    the lesser of float32 FMAs and 3xTF32 products; and float32 FMAs alone);
 18. gru_kernel_times — at the trend GRU's shape, the device time per call
-   and time per call of the kernel path (input GEMM and the one recurrence
-   launch), the recurrence kernel's own device time, of its plain version
-   and of ``torch.nn.GRU``, and the bound;
+   and time per call (over ``GRU_TIMED_CALLS`` calls) of the kernel path
+   (input GEMM and the one recurrence launch), the recurrence kernel's own
+   device time, of its plain version and of ``torch.nn.GRU``, and the
+   bound;
 19. probe_kernels — the conv-floor probe's three kernels (``matmul_bf16``,
    ``matmul_int8``, ``read_reduce``) against their plain versions: the JAX
    parity check's size and seed (``perf.convfloor.parity_check``), both
@@ -244,7 +262,7 @@ list, each run at the place its number gives among those above:
    epochs (``hparams.json`` says ``text_fingerprint: hashed-crc32-v1``) and
    ``forecast_transformer.main --ckpt_path`` on the best epoch within 1e-4
    relative of its logged ``val_wWAPE``;
-16j. data_plane (after train) — on the train phases' split (1,024 train
+16j. data_plane (after train) — on the train phases' split (512 train
    and 1,000 test rows, 4 rows a photo): the full-width gated_v4 (bf16)
    scoring the test split through ``score_split`` and training an epoch
    through ``Trainer.train_step`` on the train loader's batches, each with
@@ -286,14 +304,16 @@ list, each run at the place its number gives among those above:
    returned (spies on ``train_dl.run`` and ``forecast_dl.run``), each stat
    result equal to ``forecast_stat`` run alone.
 
-Then the ``kernels`` line (the seven TPU kernels' ports and ``int8_conv``,
+Then a ``phase_seconds`` line (each phase's ``phase_s``), the ``kernels``
+line (the seven TPU kernels' ports and ``int8_conv``,
 which replaces the JAX engine's XLA convolution; ``launches`` counts each
 row's own path, ``launches_forecast_cli`` the forecast CLIs' runs,
 ``launches_run_all`` run_all's, ``launches_artifact_serve``
 artifact_serve's in-process forwards, ``launches_w8a8_cli`` the w8a8
 phase's ``forecast_transformer --quantize w8a8`` run, rows 1, 3 and 4's ``launches_train`` a
 train step's forward and backward and an eval forward's, row 3's
-``launches_legacy`` the legacy attention's), the
+``launches_legacy`` the legacy attention's, ``launches_data_parallel`` the
+data_parallel phase's one-rank steps), the
 ``nvidia-smi`` line and,
 last, the ``ok`` line.  Without a CUDA device it exits non-zero before
 printing any result.
@@ -358,6 +378,9 @@ HARNESS_TARGET_S = 0.2   # device seconds per harness measurement
 # the process ages (none at its start): with the train phases before it, a
 # window of 20 one-kernel calls kept none.
 PROFILE_CALLS = 100
+# Calls of the trend GRU's paths (gru_kernel_times) timed and profiled: the
+# plain step loop launches ~500 kernels a call.
+GRU_TIMED_CALLS = 20
 CROSS_ATTN_DIMS = dict(attention_dim=512, embedding_dim=512, hidden_dim=512)
 # The forecast CLIs' split: 1,000 rows, 4 rows a photo (250 photos at 299²),
 # so 8 batches of 128, the last with 104 real rows.
@@ -393,11 +416,11 @@ KINK_ATOL, KINK_CANDIDATES = 1e-5, 40
 # two windows each): at 8 images of 64² the trainable blocks hold 442,368 ReLU
 # inputs, and nearly every step has one within KINK_ATOL of zero.
 PARITY_IMAGES = 2
-# Full width (train): 1,024 train rows (8 steps an epoch), 2 epochs; the
+# Full width (train): 512 train rows (4 steps an epoch), 2 epochs; the
 # SIGTERM lands after this many steps of epoch 0; forecast --ckpt_path scores
 # the best epoch within this of its logged val_wWAPE.
-TRAIN_ROWS, TRAIN_EPOCHS, TRAIN_PREEMPT_AFTER = 1024, 2, 3
-TRAIN_WINDOWS = 3
+TRAIN_ROWS, TRAIN_EPOCHS, TRAIN_PREEMPT_AFTER = 512, 2, 3
+TRAIN_WINDOWS = 2
 TRAIN_ARCH = "resnet101"
 TRAIN_WAPE_RTOL = 1e-4
 # The statistical baselines (stats): the forecast CLIs' 1,000-row split as an
@@ -443,6 +466,17 @@ W8A8_CALIB_BATCHES = 2
 # the output's scale.  The identity shortcuts' float32 addend took 10.8 ms.
 W8A8_SHORTCUT_PASS_MS = 1.5
 DATA_PLANE_TURNS = (False, True, True, False)  # native_prefetch, in turns
+# Data parallel (data_parallel): one NCCL rank against the plain Trainer on
+# this many distinct batches; two gloo ranks of the demo (seeded weights)
+# against one process, this many steps, each process with this time limit.
+DP_BATCHES, DP_DEMO_STEPS, DP_CHILD_TIMEOUT_S = 4, 2, 300
+DP_DEMO_LR = TRAIN_LR
+# Two ranks at B = 64 against one process at B = 128 with the bf16
+# backbone: cuDNN may pick other algorithms at the two batch sizes, and a
+# bf16 convolution then rounds a feature differently by up to one bf16 ulp,
+# relative (BF16_SAME_RTOL, measured in forecast_cli); the loss is a mean
+# over those features, so it is held to the same share.
+DP_RTOL = BF16_SAME_RTOL
 DATA_PLANE_PROFILED_STEPS = 3  # a profiler window's train steps (its post-processing is slow)
 
 
@@ -451,7 +485,20 @@ def _require(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_PHASE_MARK = [time.perf_counter()]  # when the last phase line was printed
+_PHASE_SECONDS = {}  # phase -> its phase_s, for the summary line
+
+
 def _emit(obj):
+    """Print one JSON line; a phase line gets its ``phase_s`` (the time
+    since the previous phase line) unless it measured its own."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj.setdefault("phase_s", now - _PHASE_MARK[0])
+        _PHASE_MARK[0] = now
+        # data_plane's phase_s holds its parts' seconds.
+        ps = obj["phase_s"]
+        _PHASE_SECONDS[obj["phase"]] = sum(ps.values()) if isinstance(ps, dict) else ps
     print(json.dumps(obj), flush=True)
 
 
@@ -1165,10 +1212,44 @@ def _screened_card_vs_cpu_training(dev, name, small, make_batches, wrapper, per_
     return result, checks
 
 
-def _compare_training(runs, init, n_steps, per_step):
-    """``_card_vs_cpu_training``'s numbers and checks for one pair of runs."""
+def _movement(init, params, reference, quiet_elements, lr_sum):
+    """Each trainable parameter's movement from ``init`` in ``params``
+    against ``reference``: the least cosine and the largest relative norm
+    difference over the parameters, per parameter and never elementwise
+    (Adafactor's first update is close to sign(g)); the frozen stages that
+    moved; and the noise elements (``quiet_elements``) held apart, each
+    parameter's to its noise steps' size (``lr_sum`` · max(rms(p), 1e-3),
+    an update of RMS at most 1): ``{name: [noise elements, elements, norm,
+    reference norm]}`` and the largest share of that bound."""
     from visuelle2_tpu_torch.train.optim import is_frozen
 
+    worst_cos, worst_norm, frozen_moved, noise, noise_share = 1.0, 0.0, [], {}, 0.0
+    for n, p0 in init.items():
+        dc, dp = (params[n] - p0).ravel(), (reference[n] - p0).ravel()
+        if is_frozen(n):
+            if dc.any() or dp.any():
+                frozen_moved.append(n)
+            continue
+        quiet = quiet_elements.get(n)
+        if quiet is not None and quiet.any():
+            bound = lr_sum * max(1e-3, p0.square().mean().sqrt().item()) * dc.numel() ** 0.5
+            norms = [dc[quiet].norm().item(), dp[quiet].norm().item()]
+            noise[n] = [int(quiet.sum()), quiet.numel(), *norms]
+            noise_share = max(noise_share, max(norms) / bound)
+            dc, dp = dc[~quiet], dp[~quiet]
+        nc, np_ = dc.norm().item(), dp.norm().item()
+        if nc == 0.0 and np_ == 0.0:
+            continue
+        if not (nc and np_):  # one side moved, the other did not
+            worst_cos, worst_norm = 0.0, float("inf")
+            continue
+        worst_cos = min(worst_cos, float(torch.dot(dc, dp) / (nc * np_)))
+        worst_norm = max(worst_norm, abs(nc - np_) / np_)
+    return worst_cos, worst_norm, frozen_moved, noise, noise_share
+
+
+def _compare_training(runs, init, n_steps, per_step):
+    """``_card_vs_cpu_training``'s numbers and checks for one pair of runs."""
     card_run, cpu_run = runs["card"], runs["cpu"]
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(card_run["losses"], cpu_run["losses"])]
     grad_share = max(((card_run["first_grads"][n] - g).abs()
@@ -1187,32 +1268,9 @@ def _compare_training(runs, init, n_steps, per_step):
                         / (TRAIN_STATS_TOL + TRAIN_STATS_TOL * b.abs())).max().item()
                        for n, b in cpu_run["buffers"].items() if b.is_floating_point()],
                       default=0.0)
-    worst_cos, worst_norm, frozen_moved, noise, noise_share = 1.0, 0.0, [], {}, 0.0
-    quiet_elements = _noise_elements(cpu_run["grads"])
-    for n, p0 in init.items():
-        dc, dp = (card_run["params"][n] - p0).ravel(), (cpu_run["params"][n] - p0).ravel()
-        if is_frozen(n):
-            if dc.any() or dp.any():
-                frozen_moved.append(n)
-            continue
-        quiet = quiet_elements.get(n)
-        if quiet is not None and quiet.any():
-            # Noise steps only: lr · max(rms(p), 1e-3) each, an update of
-            # RMS at most 1 over the parameter.
-            bound = (n_steps * TRAIN_LR * max(1e-3, p0.square().mean().sqrt().item())
-                     * dc.numel() ** 0.5)
-            norms = [dc[quiet].norm().item(), dp[quiet].norm().item()]
-            noise[n] = [int(quiet.sum()), quiet.numel(), *norms]
-            noise_share = max(noise_share, max(norms) / bound)
-            dc, dp = dc[~quiet], dp[~quiet]
-        nc, np_ = dc.norm().item(), dp.norm().item()
-        if nc == 0.0 and np_ == 0.0:
-            continue
-        if not (nc and np_):  # one side moved, the other did not
-            worst_cos, worst_norm = 0.0, float("inf")
-            continue
-        worst_cos = min(worst_cos, float(torch.dot(dc, dp) / (nc * np_)))
-        worst_norm = max(worst_norm, abs(nc - np_) / np_)
+    worst_cos, worst_norm, frozen_moved, noise, noise_share = _movement(
+        init, card_run["params"], cpu_run["params"], _noise_elements(cpu_run["grads"]),
+        n_steps * TRAIN_LR)
     checks = {
         "losses": max(loss_rel) <= TRAIN_LOSS_RTOL,
         "first-step gradients": grad_share <= 1.0,
@@ -1429,7 +1487,7 @@ def _write_cli_split(tmp):
 
 
 def _write_train_split(tmp):
-    """The train phases' synthetic split in ``tmp``: 1,024 train rows and the
+    """The train phases' synthetic split in ``tmp``: 512 train rows and the
     forecast CLIs' 1,000 test rows, 4 rows a photo, the image store's cache
     written from seeded numpy pixels (no JPEG).  Returns its path."""
     from visuelle2_tpu_torch.data.images import ImageStore
@@ -1684,6 +1742,229 @@ def _train_phase(dev, card, zero_counts, counted):
            "failed": sorted(k for k, ok in checks.items() if not ok)})
     for name, ok in checks.items():
         _require(ok, f"train: {name}")
+    return launches
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_trainer_steps(trainer, batches):
+    """``trainer`` from a fresh state over ``batches``: the losses (device
+    tensors), then the parameters and buffers."""
+    state = trainer.init_state()
+    losses = [trainer.train_step(state, b)[1]["loss"] for b in batches]
+    torch.cuda.synchronize()
+    return state, losses
+
+
+def _dp_parameter_groups(params):
+    """Parameter names by where they sit: the backbone's BatchNorms, the
+    backbone's convolutions, everything else."""
+    groups = {"backbone_batchnorm": [], "backbone_conv": [], "rest": []}
+    for n in params:
+        if ".backbone." not in n:
+            groups["rest"].append(n)
+        elif ".bn" in n or ".ds_bn" in n:
+            groups["backbone_batchnorm"].append(n)
+        else:
+            groups["backbone_conv"].append(n)
+    return groups
+
+
+def _dp_demo_runs(demo, root, tmp, port):
+    """``demo`` (the demo's command) as two gloo ranks on this card and as
+    one process alone, side by side, each with its own time limit: their
+    JSON lines by name; rank 0 and the lone process write their parameters
+    into ``tmp``.  A process that fails or outlives its limit fails the
+    phase."""
+    runs = {"rank0": ["--coordinator", f"127.0.0.1:{port}", "--num_processes", "2",
+                      "--process_id", "0", "--backend", "gloo",
+                      "--params_out", os.path.join(tmp, "two_ranks.npz")],
+            "rank1": ["--coordinator", f"127.0.0.1:{port}", "--num_processes", "2",
+                      "--process_id", "1", "--backend", "gloo"],
+            "one_process": ["--params_out", os.path.join(tmp, "one_process.npz")]}
+    procs = {k: subprocess.Popen(demo + extra, cwd=root, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, extra in runs.items()}
+    results, failed = {}, []
+    try:
+        for k, p in procs.items():
+            try:
+                stdout, stderr = p.communicate(timeout=DP_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                stdout, stderr = p.communicate()
+            lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+            if p.returncode != 0 or not lines:
+                failed.append(f"{k} exit {p.returncode}: {stderr[-2000:]}")
+                continue
+            results[k] = json.loads(lines[-1])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    _require(not failed, f"data_parallel: a demo process failed: {failed}")
+    return results
+
+
+def _data_parallel_phase(dev, card, zero_counts, counted):
+    """Phase data_parallel: the data-parallel ``Trainer`` at full width,
+    one NCCL rank against the plain ``Trainer`` bit for bit, then two gloo
+    ranks of ``parallel.demo_multihost`` on the one card against one
+    process (see the module docstring).  Returns the counted kernels'
+    launches in the one-rank run's data-parallel steps."""
+    from visuelle2_tpu_torch.models import VocabSizes, build
+    from visuelle2_tpu_torch.ops.cuda import _build
+    from visuelle2_tpu_torch.parallel import demo_multihost, distributed
+    from visuelle2_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+    from visuelle2_tpu_torch.train import loop
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    lib = _build.library_path()
+    lib_mtime = lib.stat().st_mtime_ns
+    out = {"model": "gated_v4", "batch": B, "image": IMAGE, "bf16_backbone": True,
+           "embedding_dim": 32, "hidden_dim": 64}
+
+    # (a) one NCCL rank against the plain Trainer, bit for bit.
+    config = loop.TrainConfig(grad_clip=0.5, learning_rate=TRAIN_LR)
+
+    def model():
+        return build("gated_v4", device=dev, generator=torch.Generator().manual_seed(11),
+                     vocab=VocabSizes(5, 6, 5, 126), image_dtype=torch.bfloat16,
+                     image_arch=TRAIN_ARCH)
+
+    plain = loop.Trainer(model(), config)  # no process group: the plain steps
+    distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh()
+        dp = loop.Trainer(model(), config, mesh=mesh)
+        batches = [_to_device(_synthetic_batch(B, IMAGE, seed=700 + i), dev)
+                   for i in range(DP_BATCHES)]
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True  # the same algorithms in both runs
+        try:
+            plain_state, plain_losses = _dp_trainer_steps(plain, batches)
+            zero_counts()
+            dp_state, dp_losses = _dp_trainer_steps(dp, batches)
+            launches = {n: w.launches for n, w in counted.items()}
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        same = {
+            "losses": all(torch.equal(a, b) for a, b in zip(plain_losses, dp_losses)),
+            "parameters": all(torch.equal(a, b) for a, b in zip(
+                plain.model.parameters(), dp.model.parameters())),
+            "buffers": all(torch.equal(a, b) for a, b in zip(
+                plain.model.buffers(), dp.model.buffers()))}
+        # The step must not wait on the device (NCCL's all-reduce does not).
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                dp.train_step(dp_state, batches[0])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sorted({str(w.message)[:200] for w in caught
+                        if "called a synchronizing CUDA operation" in str(w.message)})
+        # ms a step in turns: plain, data parallel, data parallel, plain.
+        cycle = itertools.cycle(batches)
+        turns = []
+        for name, trainer, state in (("plain", plain, plain_state),
+                                     ("data_parallel", dp, dp_state),
+                                     ("data_parallel", dp, dp_state),
+                                     ("plain", plain, plain_state)):
+            trainer.train_step(state, next(cycle))
+            turns.append([name, _cuda_ms(lambda: trainer.train_step(state, next(cycle)),
+                                         len(batches))])
+        out["one_rank_nccl"] = {
+            "mesh": mesh_shape(mesh), "batches": DP_BATCHES,
+            "losses": [float(v) for v in dp_losses],
+            "bit_identical_to_plain": same, "host_syncs_in_a_step": syncs,
+            "launches_per_step": launches["fused_gated_residual"] / DP_BATCHES,
+            "train_step_ms_turns": turns,
+            "train_step_ms": {k: float(np.mean([t for n, t in turns if n == k]))
+                              for k in ("plain", "data_parallel")},
+            "timing": "CUDA events over the distinct batches, one warm-up step a turn"}
+        del plain_state, dp_state
+    finally:
+        distributed.shutdown()
+    del plain, dp, batches
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks of the demo on this card, and one process alone.
+    port = _free_port()
+    demo = [sys.executable, "-m", "visuelle2_tpu_torch.parallel.demo_multihost",
+            "--device", "cuda", "--image_arch", TRAIN_ARCH, "--image_size", str(IMAGE),
+            "--bf16_backbone", "--global_batch", str(B), "--steps", str(DP_DEMO_STEPS),
+            "--learning_rate", str(DP_DEMO_LR)]
+    build_dir = os.path.join(root, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        t_spawn = time.perf_counter()
+        results = _dp_demo_runs(demo, root, tmp, port)
+        spawn_s = time.perf_counter() - t_spawn
+        saved = [dict(np.load(os.path.join(tmp, f)))
+                 for f in ("two_ranks.npz", "one_process.npz")]
+    r0, r1, one = results["rank0"], results["rank1"], results["one_process"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"])]
+    sums_rel = {k: abs(r0["eval_sums"][k] - v) / abs(v) for k, v in one["eval_sums"].items()}
+    init_model = build("gated_v4", device=dev,
+                       generator=torch.Generator().manual_seed(demo_multihost.WEIGHTS_SEED),
+                       vocab=VocabSizes(5, 6, 5, 126), output_len=12, embedding_dim=32,
+                       hidden_dim=64, image_arch=TRAIN_ARCH, image_dtype=torch.bfloat16)
+    init = {n: p.detach().float().cpu() for n, p in init_model.named_parameters()}
+    del init_model
+    # The parameters after the steps, and each step's gradient (summed over
+    # the ranks) of the process alone, whose float noise is held apart.
+    moved = [{n[len("param/"):]: torch.from_numpy(v) for n, v in run.items()
+              if n.startswith("param/")} for run in saved]
+    grads = [{n[len(f"grad{i}/"):]: torch.from_numpy(v) for n, v in saved[1].items()
+              if n.startswith(f"grad{i}/")} for i in range(DP_DEMO_STEPS)]
+    quiet = _noise_elements(grads)
+    movement = {}
+    for group, names in _dp_parameter_groups(init).items():
+        cos, norm, frozen, noise, share = _movement(
+            {n: init[n] for n in names}, moved[0], moved[1], quiet, DP_DEMO_STEPS * DP_DEMO_LR)
+        movement[group] = {"min_cos": cos, "max_norm_rel_diff": norm, "frozen_moved": frozen,
+                           "noise_elements": sum(v[0] for v in noise.values()),
+                           "noise_bound_share": share}
+    out["two_ranks_gloo"] = {
+        "mesh": r0["mesh"], "steps": DP_DEMO_STEPS, "dropout": True,
+        "losses": {"rank0": r0["losses"], "rank1": r1["losses"],
+                   "one_process": one["losses"]},
+        "eval_sums": {"rank0": r0["eval_sums"], "one_process": one["eval_sums"]},
+        "loss_rel_diff": loss_rel, "eval_sums_rel_diff": sums_rel,
+        "movement": movement, "wall_s": spawn_s,
+        "library_rebuilt": lib.stat().st_mtime_ns != lib_mtime,
+        "tol": {"loss_rtol": DP_RTOL}}
+    a, b2 = out["one_rank_nccl"], out["two_ranks_gloo"]
+    checks = {
+        "one rank = plain, bit for bit": all(a["bit_identical_to_plain"].values()),
+        "one rank: no host sync in a step": not a["host_syncs_in_a_step"],
+        "one rank: 2 launches a step": a["launches_per_step"] == 2,
+        "one rank: no other kernel": all(v == 0 for n, v in launches.items()
+                                         if n != "fused_gated_residual"),
+        "two ranks: the mesh": r0["mesh"] == {"dcn": 1, "data": 2, "model": 1},
+        "two ranks: equal losses": r0["losses"] == r1["losses"],
+        "two ranks: equal eval sums": r0["eval_sums"] == r1["eval_sums"],
+        "two ranks: finite losses": bool(np.isfinite(r0["losses"]).all()),
+        "two ranks vs one: losses": max(loss_rel) <= DP_RTOL,
+        "two ranks vs one: noise elements": all(
+            m["noise_bound_share"] <= 1.01 for m in movement.values()),
+        "two ranks vs one: frozen stages unmoved": not any(
+            m["frozen_moved"] for m in movement.values()),
+        "no rebuild in the children": not b2["library_rebuilt"]}
+    _emit({"phase": "data_parallel", **card, **out,
+           "failed": sorted(k for k, ok in checks.items() if not ok),
+           "phase_s": time.perf_counter() - t_phase})
+    for name, ok in checks.items():
+        _require(ok, f"data_parallel: {name}")
     return launches
 
 
@@ -3011,6 +3292,7 @@ def main():
             wrapper.launches = 0
 
     dev = torch.device("cuda")
+    _PHASE_MARK[0] = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3275,7 +3557,8 @@ def main():
         for i in (0, 2):  # trend-encoder layer 0 ("head"), decoder ("pure")
             args, variant = attn_calls[i], variants[i]
             kw = dict(num_heads=attn_mods[i].num_heads, variant=variant)
-            device_ms, call_ms = _kernel_vs_plain_times(mha, mha_plain, args, kw)
+            device_ms, call_ms = _kernel_vs_plain_times(mha, mha_plain, args, kw,
+                                                        n_calls=PROFILE_CALLS)
             (Bm, Lq, D), Lk = args[0].shape, args[1].shape[1]
             _require(args[1] is args[2], "key and value are one tensor on the main path")
             n_bytes, flops = roofline.gated_mha_cost(
@@ -3533,6 +3816,9 @@ def main():
                                            gcd_block_mask)
     _train_parity_phase(dev, card, kernel)
     train_launches = _train_phase(dev, card, zero_counts, counted)
+    # 16e''. data parallelism: one NCCL rank against the plain Trainer, two
+    # gloo ranks of the demo against one process --------------------------------
+    dp_launches = _data_parallel_phase(dev, card, zero_counts, counted)
     # 16j. the data plane: the prefetch engine in turns, dedup training ----------
     _data_plane_phase(dev, card, zero_counts, counted)
     # 16e'. serving from an artifact: export, load, score, HTTP, SIGTERM, splice
@@ -3589,7 +3875,7 @@ def main():
         gru_device_ms, gru_call_ms = _call_times(
             {"kernel": lambda: gru_kernel(gru_x, *gru_w),
              "plain": lambda: gru_plain(gru_x, *gru_w),
-             "library": lambda: library(gru_x)}, n_calls=50)
+             "library": lambda: library(gru_x)}, n_calls=GRU_TIMED_CALLS)
         with _profile() as prof:
             for _ in range(PROFILE_CALLS):
                 gru_kernel(gru_x, *gru_w)
@@ -3816,6 +4102,8 @@ def main():
         row["launches_run_all"] = run_all_launches[row["name"]]
         row["launches_artifact_serve"] = artifact_launches[row["name"]]
         row["launches_w8a8_cli"] = w8a8["launches_cli"][row["name"]]
+        row["launches_data_parallel"] = dp_launches[row["name"]]
+    _emit({"phase_seconds": _PHASE_SECONDS, "sum_s": sum(_PHASE_SECONDS.values())})
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,10 @@ the VISUELLE-1 GTM (``gtm_v1``), the statistical baselines (``oracle``,
 (``eval.export.export_forecaster`` / ``load_forecaster`` with int8 weight
 storage, ``cli.export``, ``cli.serve``, ``eval.server.serve_forever``,
 ``eval.client``) and the pretrained-backbone splice (``models.pretrained``,
-``--pretrained_backbone``).  Entry points put the model on ``cuda`` unless
+``--pretrained_backbone``); and data parallelism across processes
+(``parallel``: one process a device over ``torch.distributed``, the
+``Trainer`` and ``score_split`` over a ``make_mesh()`` mesh, the CLIs under
+a launcher).  Entry points put the model on ``cuda`` unless
 the caller passes ``device="cpu"`` (``_device.resolve_device``,
 ``--device`` on the CLIs).
 

@@ -9,11 +9,23 @@ metrics log.
 The flags are the JAX CLIs' own, plus ``--device`` (default ``cuda``; the
 tests pass ``cpu``): the CLI form of the port's ``device=`` rule.
 ``--gpu_num N`` selects ``cuda:N``.
+
+Under a launcher (``WORLD_SIZE`` > 1 in the environment, as ``torchrun``
+sets it) the train and forecast CLIs join the process group
+(``parallel.distributed.initialize``: each rank binds ``cuda:LOCAL_RANK``,
+or the CPU over gloo with ``--device cpu``) and train or score data
+parallel over ``make_mesh()``, each rank on its row block of every global
+``--batch_size`` batch; rank 0 alone writes files and prints the result
+lines.  This is the counterpart of the JAX CLIs' mesh over every device.
+With one process they run as before.  ``--export``, ``--dump_attention``
+and ``--quantize w8a8|auto`` score or calibrate on one process only and are
+refused under a launcher.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -35,6 +47,8 @@ from visuelle2_tpu_torch.eval.forecast import dump_attention, score_split
 from visuelle2_tpu_torch.models.base import VocabSizes
 from visuelle2_tpu_torch.models.gtm_v1 import TextFeaturizer
 from visuelle2_tpu_torch.models.pretrained import load_backbone_npz, splice_backbone
+from visuelle2_tpu_torch.parallel import distributed
+from visuelle2_tpu_torch.parallel.mesh import batch_rank_world, make_mesh
 
 
 def add_common_args(p: argparse.ArgumentParser):
@@ -105,6 +119,44 @@ def resolve_cli_device(args) -> torch.device:
     return torch.device(f"cuda:{args.gpu_num}")
 
 
+def is_main_process() -> bool:
+    """Rank 0 of the process group, or the only process: the one that
+    writes files and prints result lines."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+@contextlib.contextmanager
+def launcher_mesh(args):
+    """``(mesh, device)`` of a CLI run.  Under a launcher (``WORLD_SIZE`` >
+    1) it joins the process group on ``--device``'s kind and leaves it on
+    exit; the mesh is ``make_mesh()`` over every rank.  One process: no
+    mesh, ``--device``'s device."""
+    device = resolve_cli_device(args)
+    if distributed.launched_world_size() <= 1:
+        yield None, device
+        return
+    device = distributed.initialize(device=device.type)
+    try:
+        yield make_mesh(), device
+    finally:
+        distributed.shutdown()
+
+
+def refuse_single_process_options(args, mesh):
+    """The forecast options that run on one process only: refused under a
+    launcher rather than run on one rank's rows."""
+    if batch_rank_world(mesh)[1] == 1:
+        return
+    for flag, on in (("--export", getattr(args, "export", "")),
+                     ("--dump_attention", getattr(args, "dump_attention", "")),
+                     ("--quantize w8a8|auto",
+                      getattr(args, "quantize", "") in ("w8a8", "auto"))):
+        if on:
+            raise SystemExit(f"{flag} runs on one process; run it without a launcher")
+
+
 def add_quantize_calib_args(p):
     """The w8a8 calibration flags of the forecast CLIs."""
     p.add_argument("--calib_batches", type=int, default=2,
@@ -171,15 +223,18 @@ def build_w8a8_serving_path(model, loaders, args):
     return qmodel, calib
 
 
-def score_and_export(args, model, loaders, norm_scalar: float, provenance: dict):
+def score_and_export(args, model, loaders, norm_scalar: float, provenance: dict,
+                     mesh=None):
     """What both forecast CLIs do once the model is restored: resolve
     ``--quantize``, calibrate the w8a8 copy when it says so, score the test
-    split with the model it picked, then ``--export``."""
+    split with the model it picked (data parallel over ``mesh``), then
+    ``--export``."""
+    refuse_single_process_options(args, mesh)
     quantize = resolve_quantize(args, loaders["test"])
     scored, calib = model, None
     if quantize == "w8a8":
         scored, calib = build_w8a8_serving_path(model, loaders, args)
-    result = score_test_split(args, scored, loaders["test"], norm_scalar)
+    result = score_test_split(args, scored, loaders["test"], norm_scalar, mesh=mesh)
     if getattr(args, "export", ""):
         example = {k: v.numpy() for k, v in next(iter(loaders["test"])).items()}
         size = export_forecaster(model, example, args.export, quantize=quantize,
@@ -191,7 +246,7 @@ def score_and_export(args, model, loaders, norm_scalar: float, provenance: dict)
 def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test"),
                   text_features: bool = False, dedup_eval_images: bool = False,
                   dedup_train_images: bool = False, dedup_image_slots: int = 0,
-                  pin_memory: bool = False) -> Tuple[dict, VocabSizes, float]:
+                  pin_memory: bool = False, mesh=None) -> Tuple[dict, VocabSizes, float]:
     """Returns ``({split: BatchLoader}, vocab, norm_scalar)``.
 
     ``text_features`` runs gtm_v1's ingest-time text featurizer
@@ -205,13 +260,16 @@ def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test
     train CLI; ``data/loader.py``).
     ``dedup_image_slots`` forces the slot count (an artifact's signature
     fixed it at export).  ``pin_memory`` pins every batch (a CUDA target).
-    Non-dedup batches gather their images through the native prefetch
-    engine (``native/``), built at first use.
+    ``mesh``: each loader yields this rank's row block of every batch, and
+    dedup slot counts round up to a multiple of the ranks.  Non-dedup
+    batches gather their images through the native prefetch engine
+    (``native/``), built at first use.
     """
     cat_dict, col_dict, fab_dict = load_label_dicts(args.dataset_path)
     vocab = VocabSizes.from_dicts(cat_dict, col_dict, fab_dict)
     norm_scalar = load_norm_scalar(args.dataset_path)
     featurizer = TextFeaturizer(cat_dict, col_dict, fab_dict) if text_features else None
+    rank, world = batch_rank_world(mesh)
 
     loaders = {}
     for split in splits:
@@ -229,22 +287,26 @@ def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test
         loaders[split] = BatchLoader(
             arrays, store, args.batch_size, shuffle=(split == "train"), seed=args.seed,
             drop_remainder=(split == "train"), extras=extras, dedup_images=dedup,
-            image_slots=dedup_image_slots if dedup else 0, pin_memory=pin_memory)
+            image_slots=dedup_image_slots if dedup else 0, image_slots_multiple=world,
+            pin_memory=pin_memory, rank=rank, world=world)
         if featurizer is not None:
             loaders[split].text_fingerprint = featurizer.fingerprint
     return loaders, vocab, norm_scalar
 
 
-def score_test_split(args, model, loader, norm_scalar: float):
+def score_test_split(args, model, loader, norm_scalar: float, mesh=None):
     """What both forecast CLIs do once the model and loader exist:
-    ``--dump_attention``, ``score_split`` (``--one_pass``), ``--metrics_out``
-    (the JAX CLIs' JSON keys) and the printed summary."""
+    ``--dump_attention``, ``score_split`` (``--one_pass``; data parallel over
+    ``mesh``), ``--metrics_out`` (the JAX CLIs' JSON keys) and the printed
+    summary; rank 0 alone writes and prints."""
     if args.dump_attention:
         keys = dump_attention(model, next(iter(loader)), args.dump_attention)
         print(f"Attention weights -> {args.dump_attention}: "
               f"{keys if keys else 'model returns no attention aux'}")
-    result = score_split(model, loader, norm_scalar=norm_scalar,
+    result = score_split(model, loader, mesh=mesh, norm_scalar=norm_scalar,
                          one_pass=None if args.one_pass == "auto" else bool(int(args.one_pass)))
+    if not is_main_process():
+        return result
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump({"wape": result.wape, "mae": result.mae,
@@ -275,13 +337,14 @@ def add_train_args(p: argparse.ArgumentParser):
 
 
 def run_training(args, model, loaders, hparams: dict, *, norm_scalar: float,
-                 grad_clip: Optional[float], save_top_k: int) -> Optional[str]:
-    """The train CLIs' body: ``Trainer`` with the flags' config,
-    ``CheckpointManager(save_top_k)`` in ``--ckpt_dir``, ``hparams`` as
-    ``hparams.json``, ``metrics.jsonl``, the state ``--resume_from`` gives,
-    then ``fit``.  After a SIGTERM it exits 143 (128 + SIGTERM: a pipeline
-    stops in the grace window); else it returns the best checkpoint's
-    path."""
+                 grad_clip: Optional[float], save_top_k: int, mesh=None) -> Optional[str]:
+    """The train CLIs' body: ``Trainer`` with the flags' config (data
+    parallel over ``mesh``), ``CheckpointManager(save_top_k)`` in
+    ``--ckpt_dir``, ``hparams`` as ``hparams.json``, ``metrics.jsonl``, the
+    state ``--resume_from`` gives, then ``fit``; rank 0 alone writes them
+    and prints, every rank restores.  After a SIGTERM it exits 143 (128 +
+    SIGTERM: a pipeline stops in the grace window); else it returns the best
+    checkpoint's path."""
     from visuelle2_tpu_torch.train.checkpoint import CheckpointManager
     from visuelle2_tpu_torch.train.hparams import save_hparams
     from visuelle2_tpu_torch.train.loop import TrainConfig, Trainer
@@ -292,10 +355,17 @@ def run_training(args, model, loaders, hparams: dict, *, norm_scalar: float,
         autosave_minutes=args.autosave_minutes,
         early_stop_patience=args.early_stop_patience,
         early_stop_min_delta=args.early_stop_min_delta,
-        learning_rate=args.learning_rate or None))
-    ckpt = CheckpointManager(args.ckpt_dir, save_top_k=save_top_k)
-    save_hparams(args.ckpt_dir, hparams)
-    log = JsonlLogger(os.path.join(args.ckpt_dir, "metrics.jsonl"), wandb_args=args)
+        learning_rate=args.learning_rate or None), mesh=mesh)
+    main = is_main_process()
+    if main:
+        ckpt = CheckpointManager(args.ckpt_dir, save_top_k=save_top_k)
+        save_hparams(args.ckpt_dir, hparams)
+        log = JsonlLogger(os.path.join(args.ckpt_dir, "metrics.jsonl"), wandb_args=args)
+    else:
+        # Read only: a resume's early-stop count; fit saves on rank 0 alone.
+        ckpt = (CheckpointManager(args.ckpt_dir, read_only=True)
+                if os.path.isdir(args.ckpt_dir) else None)
+        log = JsonlLogger(None)
     state, start_epoch, skip_steps = prepare_initial_state(trainer, loaders, args)
 
     t0 = time.time()
@@ -306,9 +376,14 @@ def run_training(args, model, loaders, hparams: dict, *, norm_scalar: float,
         log.close()
     elapsed = time.time() - t0
     if trainer.history and trainer.history[-1].get("preempted"):
-        print(f"[Training Preempted] state saved at epoch {trainer.history[-1]['epoch']}; "
-              f"continue with --resume_from {args.ckpt_dir}")
+        if main:
+            print(f"[Training Preempted] state saved at epoch "
+                  f"{trainer.history[-1]['epoch']}; continue with --resume_from "
+                  f"{args.ckpt_dir}")
         raise SystemExit(143)
+    if not main:
+        return (CheckpointManager(args.ckpt_dir, read_only=True).best_model_path
+                if os.path.isdir(args.ckpt_dir) else None)
     print(f"[Training Completed] Time: {elapsed / 60:.2f} minutes ({elapsed:.2f} seconds)")
     return ckpt.best_model_path
 

@@ -19,6 +19,7 @@ it.  ``--quantize w8a8`` scores (and exports) the model with its ResNet
 backbone on the int8 engine (``models/quantized_resnet.py``), calibrated on
 ``--calib_batches`` batches of ``--calib_split``; ``--quantize auto`` picks
 w8a8 or float by the image duplication (``cli/common.py::resolve_quantize``).
+Under a launcher it scores data parallel (``cli/common.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ from visuelle2_tpu_torch.cli.common import (
     add_forecast_args,
     build_loaders,
     calib_splits,
-    resolve_cli_device,
+    is_main_process,
+    launcher_mesh,
     score_and_export,
 )
 from visuelle2_tpu_torch.models import build
@@ -93,20 +95,23 @@ def run(args, parser=None, argv=None):
     print(args)
     demand = bool(args.new_product)
     output_len = output_len_of(args, hp)
-    device = resolve_cli_device(args)
-    loaders, vocab, norm_scalar = build_loaders(
-        args, demand=demand, output_len=output_len, splits=calib_splits(args),
-        dedup_eval_images=bool(args.dedup_images), pin_memory=device.type == "cuda")
-    check_dataset_compat(hp, vocab, norm_scalar)
-    model = make_model(args, vocab, output_len, demand=demand, device=device,
-                       generator=seed_everything(args.seed))
-    if args.ckpt_path:
-        ckpt.restore_for_eval(model, ckpt_step)
-        print(f"restored {ckpt_root} epoch "
-              f"{ckpt.best_step() if ckpt_step is None else ckpt_step}")
-    result = score_and_export(args, model, loaders, norm_scalar,
-                              {"model": type(model).__name__})
-    print(f"GFLOPS: {result.gflops_per_sample}")
+    with launcher_mesh(args) as (mesh, device):
+        loaders, vocab, norm_scalar = build_loaders(
+            args, demand=demand, output_len=output_len, splits=calib_splits(args),
+            dedup_eval_images=bool(args.dedup_images), pin_memory=device.type == "cuda",
+            mesh=mesh)
+        check_dataset_compat(hp, vocab, norm_scalar)
+        model = make_model(args, vocab, output_len, demand=demand, device=device,
+                           generator=seed_everything(args.seed))
+        if args.ckpt_path:
+            ckpt.restore_for_eval(model, ckpt_step)
+            if is_main_process():
+                print(f"restored {ckpt_root} epoch "
+                      f"{ckpt.best_step() if ckpt_step is None else ckpt_step}")
+        result = score_and_export(args, model, loaders, norm_scalar,
+                                  {"model": type(model).__name__}, mesh=mesh)
+        if is_main_process():
+            print(f"GFLOPS: {result.gflops_per_sample}")
     return result
 
 

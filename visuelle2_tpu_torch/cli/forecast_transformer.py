@@ -23,7 +23,8 @@ scores or serves it.  ``--quantize w8a8`` scores (and exports) the model
 with its ResNet backbone on the int8 engine (``models/quantized_resnet.py``),
 calibrated on ``--calib_batches`` batches of ``--calib_split`` (``train``
 loads the train split too); ``--quantize auto`` picks w8a8 or float by the
-image duplication (``cli/common.py::resolve_quantize``).
+image duplication (``cli/common.py::resolve_quantize``).  Under a launcher
+it scores data parallel (``cli/common.py``).
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ from visuelle2_tpu_torch.cli.common import (
     add_train_args,
     build_loaders,
     calib_splits,
-    resolve_cli_device,
+    is_main_process,
+    launcher_mesh,
     score_and_export,
 )
 from visuelle2_tpu_torch.models import build
@@ -90,23 +92,25 @@ def run(args, parser=None, argv=None):
     demand = bool(args.demand)
     if args.model == "gtm_v1" and not demand:
         raise SystemExit("gtm_v1 is demand-only; use --demand 1")
-    device = resolve_cli_device(args)
-    loaders, vocab, norm_scalar = build_loaders(
-        args, demand=demand, output_len=args.output_len, splits=calib_splits(args),
-        text_features=args.model == "gtm_v1", dedup_eval_images=bool(args.dedup_images),
-        pin_memory=device.type == "cuda")
-    check_dataset_compat(hp, vocab, norm_scalar)
-    if args.model == "gtm_v1":
-        check_text_fingerprint(hp, getattr(loaders["test"], "text_fingerprint", None))
-    model = make_model(args, vocab, device=device, generator=seed_everything(args.seed))
-    if args.ckpt_path:
-        ckpt.restore_for_eval(model, ckpt_step)
-        print(f"restored {ckpt_root} epoch "
-              f"{ckpt.best_step() if ckpt_step is None else ckpt_step}")
-    fingerprint = getattr(loaders["test"], "text_fingerprint", None)
-    return score_and_export(args, model, loaders, norm_scalar, {
-        "model": args.model,
-        **({"text_fingerprint": fingerprint} if args.model == "gtm_v1" else {})})
+    with launcher_mesh(args) as (mesh, device):
+        loaders, vocab, norm_scalar = build_loaders(
+            args, demand=demand, output_len=args.output_len, splits=calib_splits(args),
+            text_features=args.model == "gtm_v1", dedup_eval_images=bool(args.dedup_images),
+            pin_memory=device.type == "cuda", mesh=mesh)
+        check_dataset_compat(hp, vocab, norm_scalar)
+        if args.model == "gtm_v1":
+            check_text_fingerprint(hp, getattr(loaders["test"], "text_fingerprint", None))
+        model = make_model(args, vocab, device=device, generator=seed_everything(args.seed))
+        if args.ckpt_path:
+            ckpt.restore_for_eval(model, ckpt_step)
+            if is_main_process():
+                print(f"restored {ckpt_root} epoch "
+                      f"{ckpt.best_step() if ckpt_step is None else ckpt_step}")
+        fingerprint = getattr(loaders["test"], "text_fingerprint", None)
+        return score_and_export(args, model, loaders, norm_scalar, {
+            "model": args.model,
+            **({"text_fingerprint": fingerprint} if args.model == "gtm_v1" else {})},
+            mesh=mesh)
 
 
 def add_model_args(p, default_model="gtm"):

@@ -20,7 +20,10 @@ it saves at the next step boundary and exits 143; the same command with
 ``--pretrained_backbone X.npz`` splices a converted backbone
 (``models/pretrained.py``) into the model before the first step.
 ``--dedup_images 1`` trains on unique-image batches (the grouped sampler,
-``data/loader.py``): each photo of a batch is encoded once.
+``data/loader.py``): each photo of a batch is encoded once.  Under a
+launcher (``torchrun --nproc_per_node N -m visuelle2_tpu_torch.cli.train_dl
+...``) it trains data parallel, ``--batch_size`` the global batch
+(``cli/common.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from visuelle2_tpu_torch.cli.common import (
     add_common_args,
     add_train_args,
     build_loaders,
-    resolve_cli_device,
+    is_main_process,
+    launcher_mesh,
     run_training,
 )
 from visuelle2_tpu_torch.cli.forecast_dl import make_model, model_name
@@ -62,20 +66,22 @@ def run(args):
     print(args)
     demand = bool(args.demand)
     output_len = 12 if demand else args.output_len
-    device = resolve_cli_device(args)
-    loaders, vocab, norm_scalar = build_loaders(
-        args, demand=demand, output_len=output_len,
-        dedup_train_images=bool(args.dedup_images),
-        dedup_eval_images=True,  # the same outputs; faster per-epoch validation
-        pin_memory=device.type == "cuda")
-    print(f"Completed dataset loading procedure. Train batches: {len(loaders['train'])}, "
-          f"test batches: {len(loaders['test'])}")
-    model = make_model(args, vocab, output_len, demand=demand, device=device,
-                       generator=seed_everything(args.seed), training=True)
-    # Unclipped: the train_dl family's Adafactor.
-    best = run_training(args, model, loaders, hparams_of(args, vocab, norm_scalar),
-                        norm_scalar=norm_scalar, grad_clip=None, save_top_k=SAVE_TOP_K)
-    print(best)
+    with launcher_mesh(args) as (mesh, device):
+        loaders, vocab, norm_scalar = build_loaders(
+            args, demand=demand, output_len=output_len,
+            dedup_train_images=bool(args.dedup_images),
+            dedup_eval_images=True,  # the same outputs; faster per-epoch validation
+            pin_memory=device.type == "cuda", mesh=mesh)
+        print(f"Completed dataset loading procedure. Train batches: "
+              f"{len(loaders['train'])}, test batches: {len(loaders['test'])}")
+        model = make_model(args, vocab, output_len, demand=demand, device=device,
+                           generator=seed_everything(args.seed), training=True)
+        # Unclipped: the train_dl family's Adafactor.
+        best = run_training(args, model, loaders, hparams_of(args, vocab, norm_scalar),
+                            norm_scalar=norm_scalar, grad_clip=None, save_top_k=SAVE_TOP_K,
+                            mesh=mesh)
+        if is_main_process():
+            print(best)
     return best
 
 

@@ -21,6 +21,9 @@ featurizer's ``text_fingerprint``.  ``--pretrained_backbone X.npz`` splices
 a converted backbone (``models/pretrained.py``) into the model before the
 first step.  ``--dedup_images 1`` trains on unique-image batches (the
 grouped sampler, ``data/loader.py``): each photo of a batch is encoded once.
+Under a launcher (``torchrun --nproc_per_node N -m
+visuelle2_tpu_torch.cli.train_transformer ...``) it trains data parallel,
+``--batch_size`` the global batch (``cli/common.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import argparse
 from visuelle2_tpu_torch.cli.common import (
     add_common_args,
     build_loaders,
-    resolve_cli_device,
+    is_main_process,
+    launcher_mesh,
     run_training,
 )
 from visuelle2_tpu_torch.cli.forecast_transformer import add_model_args, make_model
@@ -66,18 +70,19 @@ def run(args):
     if args.model == "gtm_v1" and not args.demand:
         raise SystemExit("gtm_v1 is demand-only (the original VISUELLE-1 GTM has no "
                          "windowed stfore path); use --demand 1")
-    device = resolve_cli_device(args)
-    loaders, vocab, norm_scalar = build_loaders(
-        args, demand=bool(args.demand), output_len=args.output_len,
-        text_features=args.model == "gtm_v1", dedup_train_images=bool(args.dedup_images),
-        dedup_eval_images=True,  # the same outputs; faster per-epoch validation
-        pin_memory=device.type == "cuda")
-    model = make_model(args, vocab, device=device, generator=seed_everything(args.seed))
-    hparams = hparams_of(args, vocab, norm_scalar,
-                         getattr(loaders["train"], "text_fingerprint", None))
-    best = run_training(args, model, loaders, hparams,
-                        norm_scalar=norm_scalar, grad_clip=GRAD_CLIP, save_top_k=SAVE_TOP_K)
-    print(f"Best Model Path: {best}")
+    with launcher_mesh(args) as (mesh, device):
+        loaders, vocab, norm_scalar = build_loaders(
+            args, demand=bool(args.demand), output_len=args.output_len,
+            text_features=args.model == "gtm_v1", dedup_train_images=bool(args.dedup_images),
+            dedup_eval_images=True,  # the same outputs; faster per-epoch validation
+            pin_memory=device.type == "cuda", mesh=mesh)
+        model = make_model(args, vocab, device=device, generator=seed_everything(args.seed))
+        hparams = hparams_of(args, vocab, norm_scalar,
+                             getattr(loaders["train"], "text_fingerprint", None))
+        best = run_training(args, model, loaders, hparams, norm_scalar=norm_scalar,
+                            grad_clip=GRAD_CLIP, save_top_k=SAVE_TOP_K, mesh=mesh)
+        if is_main_process():
+            print(f"Best Model Path: {best}")
     return best
 
 

@@ -13,6 +13,13 @@ straight into it): a buffer is never reused, so a ``non_blocking`` copy to
 the card still reading one batch never races the next batch's gather.
 ``native_prefetch=False`` gathers with numpy instead; a failed build of the
 engine raises.
+
+Data parallel (``rank``, ``world``): ``batch_size`` is the global batch, and
+each rank's loader yields its contiguous row block of every global batch
+(``batch_size / world`` rows, its share of the padding and the ``mask``),
+gathering only its own rows' images: no process holds the whole batch.
+Every rank sees the same number of batches.  ``shard_batch`` cuts this
+rank's block out of a host batch instead (the JAX ``shard_batch``).
 """
 
 from __future__ import annotations
@@ -56,7 +63,10 @@ class BatchLoader:
     the other B - 2 rows.  ``unique_image_slots`` is that requirement before
     ``image_slots`` is forced (an artifact's signature) or rounded up to
     ``image_slots_multiple`` (the data-parallel degree; 1 on one card): the
-    true duplication factor is ``batch_size / unique_image_slots``.
+    true duplication factor is ``batch_size / unique_image_slots``.  Under
+    data parallelism each rank ships its block of the global batch's slots
+    (``image_slots`` must divide by ``world``), and ``img_idx`` indexes the
+    global slot axis.
 
     Against the duplicate-encode batch, per-row losses and the gather's
     gradients are the same up to two train-mode deviations (the JAX
@@ -70,7 +80,12 @@ class BatchLoader:
                  extras: Optional[Dict[str, np.ndarray]] = None,
                  dedup_images: bool = False, image_slots: int = 0,
                  image_slots_multiple: int = 1, pin_memory: bool = False,
-                 native_prefetch: bool = True):
+                 native_prefetch: bool = True, rank: int = 0, world: int = 1):
+        if world < 1 or not 0 <= rank < world or batch_size % world:
+            raise ValueError(f"rank {rank} of world {world}: the batch of {batch_size} "
+                             f"rows must divide into the ranks")
+        self.rank, self.world = rank, world
+        self.local_batch_size = batch_size // world
         self.arrays = arrays
         self.images = images
         if images is not None and len(images) != len(arrays):
@@ -106,6 +121,9 @@ class BatchLoader:
                     f"image slots this split/batch-size requires")
             multiple = max(1, int(image_slots_multiple))
             self.image_slots = int(image_slots or -(-slots // multiple) * multiple)
+            if self.image_slots % world:
+                raise ValueError(f"image_slots={self.image_slots} do not divide into "
+                                 f"{world} ranks (image_slots_multiple)")
         # Per-item side arrays gathered and padded with the batch.
         self.extras = extras or {}
         for k, v in self.extras.items():
@@ -148,8 +166,19 @@ class BatchLoader:
         batch["mask"] = mask
         return batch
 
-    def _gather_numpy(self, idx: np.ndarray, pad_to: int) -> Dict[str, np.ndarray]:
-        batch = self._gather_rows(idx, pad_to)
+    def _local_rows(self, idx: np.ndarray) -> np.ndarray:
+        """This rank's rows of the global batch ``idx`` (its padding rows
+        are the ones past them)."""
+        if self.world == 1:
+            return idx
+        lo = self.rank * self.local_batch_size
+        return idx[lo: lo + self.local_batch_size]
+
+    def _gather_numpy(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        """This rank's batch of the global batch ``idx``."""
+        pad_to = self.local_batch_size
+        rows = self._local_rows(idx)
+        batch = self._gather_rows(rows, pad_to)
         if self.images is None:
             return batch
         if self.dedup_images:
@@ -159,12 +188,14 @@ class BatchLoader:
                 # Spare slots repeat the batch's own images: img_idx never
                 # addresses them, and they stay in-distribution.
                 uniq = uniq[np.resize(np.arange(len(uniq)), self.image_slots)]
-            batch["images"] = self.images.pixels[uniq]
+            per = self.image_slots // self.world
+            batch["images"] = self.images.pixels[uniq[self.rank * per: (self.rank + 1) * per]]
             img_idx = np.zeros(pad_to, np.int32)
-            img_idx[: len(inv)] = inv.astype(np.int32)
+            local_inv = inv[self.rank * pad_to: self.rank * pad_to + len(rows)]
+            img_idx[: len(rows)] = local_inv.astype(np.int32)
             batch["img_idx"] = img_idx
         else:
-            batch["images"] = _pad_to(self.images.gather(idx), pad_to)
+            batch["images"] = _pad_to(self.images.gather(rows), pad_to)
         return batch
 
     def _to_tensors(self, batch: Dict[str, np.ndarray]) -> Batch:
@@ -204,8 +235,9 @@ class BatchLoader:
         blocks = self._epoch_index_blocks()[skip_blocks:]
         if self._engine is None or not blocks:
             for idx in blocks:
-                yield self._to_tensors(self._gather_numpy(idx, self.batch_size))
+                yield self._to_tensors(self._gather_numpy(idx))
             return
+        blocks = [self._local_rows(idx) for idx in blocks]
         # Double-buffered: the engine gathers batch t + 1's images while
         # batch t is consumed.
         pending = None
@@ -217,7 +249,7 @@ class BatchLoader:
                 idx, images, handle = pending
                 pending = None
                 self._engine.wait(handle)
-                batch = self._to_tensors(self._gather_rows(idx, self.batch_size))
+                batch = self._to_tensors(self._gather_rows(idx, self.local_batch_size))
                 batch["images"] = images
                 pending = self._submit(nxt) if nxt is not None else None
                 yield batch
@@ -228,12 +260,41 @@ class BatchLoader:
                 self._engine.wait(pending[2])
 
     def _submit(self, idx: np.ndarray):
-        """Start gathering ``idx``'s images into a fresh batch-sized buffer
-        (pinned under ``pin_memory``); rows past ``len(idx)`` are zeros."""
+        """Start gathering ``idx``'s images (this rank's rows) into a fresh
+        buffer of this rank's batch size (pinned under ``pin_memory``); rows
+        past ``len(idx)`` are zeros."""
         pixels = self.images.pixels
         n = len(idx)
-        images = torch.empty((self.batch_size,) + pixels.shape[1:], dtype=torch.uint8,
+        images = torch.empty((self.local_batch_size,) + pixels.shape[1:], dtype=torch.uint8,
                              pin_memory=self.pin_memory)
         images[n:] = 0
         img_idx = np.ascontiguousarray(self.images.image_indices(idx), np.int64)
         return idx, images, self._engine.submit(pixels, img_idx, images[:n].numpy())
+
+
+def shard_batch(batch, mesh=None, device=None) -> Batch:
+    """This rank's contiguous row block of the host batch ``batch``
+    (logically global; numpy arrays or CPU tensors) on ``device``, the
+    counterpart of the JAX ``shard_batch``.  A dedup batch's ``images`` are
+    cut by the slot axis (``img_idx`` keeps its global slot indices).  The
+    copy runs non-blocking from pinned memory to a CUDA device.  With no mesh
+    (or one rank) it is the whole batch, moved.  ``device`` defaults to the
+    rank's (``parallel.distributed.initialize``), else the CPU."""
+    from visuelle2_tpu_torch.parallel import distributed
+    from visuelle2_tpu_torch.parallel.mesh import batch_rank_world
+
+    rank, world = batch_rank_world(mesh)
+    device = torch.device(device or distributed.current_device() or "cpu")
+    out = {}
+    for key, value in batch.items():
+        t = torch.as_tensor(value)
+        if world > 1:
+            n = t.shape[0]
+            if n % world:
+                raise ValueError(f"{key}: {n} rows do not divide into {world} ranks")
+            t = t[rank * (n // world): (rank + 1) * (n // world)]
+        t = t.contiguous()
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[key] = t.to(device)
+    return out

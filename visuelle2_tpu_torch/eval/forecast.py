@@ -14,6 +14,14 @@ batch at a time; ``None`` picks one-pass when the split's bytes fit
 ``score_split``'s ``apply_fn`` is the model itself here: the w8a8 path
 scores ``models/quantized_resnet.py::quantized_model``'s copy, so the
 metrics, GFLOPs and forecasts/s are that path's.
+
+``mesh`` (``parallel/mesh.py``): data parallel, each rank scores its row
+block of every batch (a loader with its ``rank`` / ``world``) inside
+``parallel.collectives.data_parallel`` (a dedup batch's slots are spread
+over the ranks), the sums are all-reduced before the host reads them, and
+forecasts/s counts the global rows (per chip: divided by the ranks), as the
+JAX ``score_split`` does over its mesh.  Without one it is
+``make_mesh()``: one rank with no process group.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ import torch
 
 from visuelle2_tpu_torch.eval.profiler import batch_flops, peak_memory_bytes
 from visuelle2_tpu_torch.ops.metrics import eval_metrics, finalize_metrics
+from visuelle2_tpu_torch.parallel import collectives
+from visuelle2_tpu_torch.parallel import mesh as mesh_lib
 from visuelle2_tpu_torch.train.loop import SUM_KEYS, expand_mask, target_and_pred, to_device
 # One-pass keeps the whole split on the device beside the weights, the
 # activations and the allocator's workspace: it may take this share of the
@@ -126,12 +136,21 @@ def _timed_window_s(model, batches, device) -> float:
     return (time.perf_counter() - t0) / len(batches)
 
 
-def score_split(model, loader, *, norm_scalar: float = 53.0,
+def score_split(model, loader, *, mesh=None, norm_scalar: float = 53.0,
                 measure_throughput: bool = True, timing_iters: int = 10,
                 one_pass: Optional[bool] = None) -> ForecastResult:
     """Score a test split with ``model`` on its own device (see the module
     docstring)."""
     device = _model_device(model)
+    mesh = mesh if mesh is not None else mesh_lib.make_mesh(device_type=device.type)
+    with collectives.data_parallel(mesh):
+        return _score(model, loader, mesh, device, norm_scalar, measure_throughput,
+                      timing_iters, one_pass)
+
+
+def _score(model, loader, mesh, device, norm_scalar, measure_throughput, timing_iters,
+           one_pass) -> ForecastResult:
+    world = mesh_lib.batch_rank_world(mesh)[1]
     first = next(iter(loader), None)
     if first is None:
         raise ValueError("score_split got a loader with zero batches — the split is empty")
@@ -175,6 +194,10 @@ def score_split(model, loader, *, norm_scalar: float = 53.0,
                     # batch would hold the whole split, which this path avoids.
                     batches.append(batch)
                 sums = step(sums, batch)
+        if mesh_lib.is_distributed(mesh):
+            import torch.distributed as dist
+
+            dist.all_reduce(sums, group=mesh_lib.batch_group(mesh))
         totals = dict(zip(SUM_KEYS, sums.tolist()))  # the one host sync
         split_s = time.perf_counter() - t0
         fin = finalize_metrics(totals)
@@ -194,11 +217,11 @@ def score_split(model, loader, *, norm_scalar: float = 53.0,
             timed = rolled(1)
             per_forward = [_timed_window_s(forward, timed, device)
                            for _ in range(TIMING_WINDOWS)]
-            windows = [bs / s for s in per_forward]
-            fps = bs / statistics.median(per_forward)
+            windows = [world * bs / s for s in per_forward]
+            fps = world * bs / statistics.median(per_forward)
 
     return ForecastResult(
         wape=fin["wape"], mae=fin["mae"], num_forecasts=int(totals["rows"]),
-        forecasts_per_sec=fps, forecasts_per_sec_per_chip=fps,
+        forecasts_per_sec=fps, forecasts_per_sec_per_chip=fps and fps / world,
         gflops_per_sample=gflops, peak_hbm_bytes=peak, split_seconds=split_s,
         forecasts_per_sec_windows=windows, forwards=forwards, one_pass=bool(one_pass))

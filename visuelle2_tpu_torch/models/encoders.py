@@ -24,6 +24,11 @@ GTM / M4FT, 0.1 each feature for CrossAttnRNN), the patch encoder's
 projection (0.1), and the trend encoder's positions (0.1) and layers (0.2).
 ``ImagePooledEncoder`` has no dropout, as in the JAX package; ``remat``
 reaches its backbone.
+
+A dedup batch's ``img_idx`` indexes the global slot axis: under data
+parallelism each rank encodes its slot block, and the global features are
+gathered (with their gradient) before the rows take theirs
+(``parallel/collectives.py::select_global_rows``).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from visuelle2_tpu_torch.ops.gru import GRU
 from visuelle2_tpu_torch.ops.masks import gcd_block_mask
 from visuelle2_tpu_torch.ops.positional import PositionalEncoding
 from visuelle2_tpu_torch.ops.transformer import TransformerEncoder
+from visuelle2_tpu_torch.parallel import collectives
 
 
 class TSEmbedder(nn.Module):
@@ -185,7 +191,7 @@ class ImagePatchEncoder(nn.Module):
         B, H, W, C = feats.shape
         out = self.drop(self.fc(feats.reshape(B, H * W, C).float()))
         if img_idx is not None:
-            out = out.index_select(0, img_idx)
+            out = collectives.select_global_rows(out, img_idx)
         return out
 
 
@@ -212,7 +218,7 @@ class ImagePooledEncoder(nn.Module):
         if self.final_proj is not None:
             pooled = self.final_proj(pooled)
         if img_idx is not None:
-            pooled = pooled.index_select(0, img_idx)
+            pooled = collectives.select_global_rows(pooled, img_idx)
         return pooled
 
 

@@ -45,6 +45,7 @@ from visuelle2_tpu_torch.ops.attention import MultiHeadAttention
 from visuelle2_tpu_torch.ops.dropout import Dropout
 from visuelle2_tpu_torch.ops.positional import PositionalEncoding
 from visuelle2_tpu_torch.ops.transformer import LN_EPS
+from visuelle2_tpu_torch.parallel import collectives
 
 GTM_V1_NORM_SCALAR = 1065.0  # GTM.py:321
 
@@ -206,7 +207,7 @@ class GTMv1(nn.Module):
             feats = self.image_encoder(batch["images"])
             if batch.get("img_idx") is not None:
                 # A unique-image batch (eval dedup): expand to rows.
-                feats = feats.index_select(0, batch["img_idx"])
+                feats = collectives.select_global_rows(feats, batch["img_idx"])
         dummy = self.dummy_encoder(batch["temporal"])
         text = self.text_drop(self.text_fc(batch["text_features"]))
         memory = self.gtrend_encoder(batch["gtrends"])

@@ -19,6 +19,8 @@ move too (torch's ``requires_grad=False`` + ``.train()``, the JAX freeze
 split).  ``remat=True`` runs each bottleneck under
 ``torch.utils.checkpoint`` in training (the JAX ``nn.remat``); its
 recomputation leaves the running statistics alone (``ops/dropout.py``).
+Under data parallelism the batch statistics are the global batch's
+(``batch_statistics``), so every rank moves its running statistics alike.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from visuelle2_tpu_torch.ops import dropout
+from visuelle2_tpu_torch.parallel import collectives
 
 STAGE_BLOCKS = {
     "resnet50": (3, 4, 6, 3),
@@ -46,10 +49,15 @@ MOMENTUM = 0.1
 
 
 def batch_statistics(x: torch.Tensor, dims) -> tuple:
-    """Mean and biased variance over ``dims`` in float32, and the count."""
+    """Mean and biased variance over ``dims`` in float32, and the count.
+    Under data parallelism (``parallel/collectives.py``) they are the global
+    batch's: this rank's moments combined with every other rank's."""
     var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
     n = x.numel() // x.shape[1]
-    return mean, var, n
+    shard = collectives.active()
+    if shard is None:
+        return mean, var, n
+    return collectives.combine_moments(mean, var, n, shard)
 
 
 def update_running(mod: nn.Module, mean, var, n: int) -> None:

@@ -14,6 +14,13 @@ A kept element is scaled by ``1 / (1 - rate)``, a dropped one is 0, as flax's
 parity runs turn dropout off everywhere with ``disabled()`` (the JAX tests
 neutralize flax's ``Dropout`` the same way).
 
+Under data parallelism (``parallel/collectives.py``) a mask is drawn for
+the global batch's leading dimension and this rank keeps its row block, so
+the masks are those of the single-device step on the global batch, as the
+JAX package's masks over global arrays are.  Every tensor the model drops
+is item-major (batch first; window-flattened rows and heads follow their
+item), so the block is this rank's items.
+
 ``recomputing()`` marks the second forward of a block under
 ``torch.utils.checkpoint`` (``--remat``): train-mode BatchNorm leaves its
 running statistics alone there, so each block updates them once a step, as
@@ -28,6 +35,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from visuelle2_tpu_torch.parallel import collectives
 
 _local = threading.local()
 
@@ -82,8 +91,15 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
     if not training or rate == 0.0 or is_disabled():
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, dtype=torch.float32, device=x.device,
+    shape, shard = x.shape, collectives.active()
+    if shard is not None:
+        # The global batch's mask, this rank's row block of it: the same
+        # masks at any world size.
+        shape = (shard.world * x.shape[0],) + tuple(x.shape[1:])
+    keep = torch.rand(shape, dtype=torch.float32, device=x.device,
                       generator=_get("generator", None)) < keep_prob
+    if shard is not None:
+        keep = keep[shard.rank * x.shape[0]: (shard.rank + 1) * x.shape[0]]
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

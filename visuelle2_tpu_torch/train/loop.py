@@ -19,13 +19,44 @@
 A ``TrainState`` holds the model (parameters and BatchNorm statistics), the
 optimizer and the global step; the step functions update it in place and
 return it, as the JAX ones return a new one.  The parity runs turn dropout
-off everywhere by calling the steps inside ``ops.dropout.disabled()``.  The
-data-parallel and tensor-parallel options of the JAX config arrive with
-ROADMAP Queue 1 item 12.
+off everywhere by calling the steps inside ``ops.dropout.disabled()``.
+
+``Trainer(model, config, mesh)`` takes the JAX signature.  With no mesh it
+is ``parallel.mesh.make_mesh()``: the stand-in one-rank mesh without a
+process group, so the steps above run as written.  Over a process group
+(one rank a device, ``parallel/distributed.py::initialize``) it trains data
+parallel, each rank on its row block of every global batch, and gives the
+single-device step's numbers on the global batch whatever the world size:
+
+* ``init_state`` broadcasts the parameters and buffers from rank 0;
+* the masked MSE is this rank's numerator over the global denominator
+  (an all-reduce outside autograd), so the ranks' losses sum to the global
+  loss, wherever the ranks hold different counts of real rows;
+* BatchNorm statistics, dropout masks and the dedup gather are global
+  inside the step (``parallel/collectives.py``);
+* after ``backward`` one flat all-reduce sums the gradients, the loss and
+  a stop flag across ranks: one collective a step, over exactly the
+  gradients that exist, with no hook in autograd (``DistributedDataParallel``
+  would average, not sum, and re-send BatchNorm buffers at every forward);
+  the Adafactor update and its global-norm clip then run alike on every
+  rank on the same summed gradient;
+* ``evaluate`` and ``eval_step`` all-reduce the float64 partial sums;
+* ``fit``: rank 0 alone logs, writes checkpoints and traces; a SIGTERM on
+  any rank sets its stop flag, which reaches every rank through the next
+  step's all-reduce; each rank reads the agreed flag ``STOP_LAG`` steps
+  later from a copy to pinned host memory, or at the epoch's end, so every
+  rank stops at the same step boundary and no step waits on the device.
+
+At one rank every collective is the identity and the steps give the plain
+``Trainer``'s bits.  The JAX ``TrainConfig.data_parallel`` is never read by
+the JAX package, so the port has no such option (data parallelism follows
+the mesh); ``tp_min_dim`` comes with tensor parallelism (ROADMAP Queue 1
+item 12b; ``make_mesh(model > 1)`` raises).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import signal
 import threading
@@ -37,10 +68,15 @@ import torch
 from torch import nn
 
 from visuelle2_tpu_torch.ops.metrics import eval_metrics, finalize_metrics
+from visuelle2_tpu_torch.parallel import collectives
+from visuelle2_tpu_torch.parallel import mesh as mesh_lib
 from visuelle2_tpu_torch.train import optim as optim_lib
 
 SUM_KEYS = ("abs_err", "abs_gt", "count", "rows")  # eval_metrics' partial sums
 DROPOUT_SEED_OFFSET = 1000  # the JAX fit's rng = key(seed + 1000)
+# Steps between a stop flag's all-reduce and the step boundary that reads it
+# (data parallel fit): the host waits only on a step that is long done.
+STOP_LAG = 2
 
 
 def target_and_pred(batch, forecast: torch.Tensor):
@@ -70,11 +106,19 @@ def expand_mask(batch, target: torch.Tensor) -> torch.Tensor:
     return torch.repeat_interleave(mask, reps, dim=0) if reps > 1 else mask
 
 
-def mse_loss(target, pred, row_mask):
-    """MSE over the real rows: Σ mask·(target − pred)² / max(Σ mask · H, 1)."""
+def mse_loss(target, pred, row_mask, group=None):
+    """MSE over the real rows: Σ mask·(target − pred)² / max(Σ mask · H, 1).
+    With a process ``group`` the denominator is the global batch's (summed
+    over the ranks, outside autograd) and the result this rank's share of
+    the global loss."""
     err = (target - pred) ** 2
-    denom = torch.clamp_min(row_mask.sum() * target.shape[-1], 1.0)
-    return torch.sum(err * row_mask[:, None]) / denom
+    denom = row_mask.sum() * target.shape[-1]
+    if group is not None:
+        import torch.distributed as dist
+
+        denom = denom.detach()
+        dist.all_reduce(denom, group=group)
+    return torch.sum(err * row_mask[:, None]) / torch.clamp_min(denom, 1.0)
 
 
 def to_device(batch, device) -> Dict[str, torch.Tensor]:
@@ -146,57 +190,153 @@ class PreemptionWatch:
         return False
 
 
-class Trainer:
-    """Train and evaluate one registry model on its own device."""
+class _StopAgreement:
+    """Whether ``fit`` stops at this step boundary after a SIGTERM.  One
+    process: the watch's flag.  Data parallel: the flags every rank put into
+    a step's all-reduce, read ``STOP_LAG`` steps later (every pending one
+    with ``lag=0``, at an epoch's end) from a copy to pinned host memory, so
+    every rank reads the same flags at the same boundaries and the host
+    waits only on a step that is long done."""
 
-    def __init__(self, model: nn.Module, config: TrainConfig):
+    def __init__(self, trainer):
+        self.trainer = trainer
+        self.pending = collections.deque()
+        self.agreed = False
+
+    def after_step(self):
+        if not self.trainer.distributed:
+            return
+        flag = self.trainer._stop_flag
+        if flag.device.type == "cuda":
+            host = torch.empty(1, dtype=flag.dtype, pin_memory=True)
+            host.copy_(flag, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host, event = flag.clone(), None
+        self.pending.append((host, event))
+
+    def requested(self, lag: int = STOP_LAG) -> bool:
+        if not self.trainer.distributed:
+            return self.trainer._watch.requested
+        while len(self.pending) > lag:
+            host, event = self.pending.popleft()
+            if event is not None:
+                event.synchronize()
+            self.agreed = self.agreed or float(host[0]) > 0.0
+        return self.agreed
+
+
+class Trainer:
+    """Train and evaluate one registry model on its own device; data
+    parallel over ``mesh``'s batch axis (see the module docstring)."""
+
+    def __init__(self, model: nn.Module, config: TrainConfig, mesh=None):
         self.model = model
         self.config = config
         self.device = next(model.parameters()).device
+        self.mesh = mesh if mesh is not None else mesh_lib.make_mesh(
+            device_type=self.device.type)
+        self.rank, self.world = mesh_lib.batch_rank_world(self.mesh)
+        self.distributed = mesh_lib.is_distributed(self.mesh)
+        self._group = mesh_lib.batch_group(self.mesh) if self.distributed else None
+        self.is_main = self.rank == 0
         self.history = []
+        self._watch = None  # fit's PreemptionWatch, read into the stop flag
+        self._stop_flag = None  # the last step's all-reduced stop flag (device)
 
     # ------------------------------------------------------------------ init
     def init_state(self) -> TrainState:
         """The state of a fresh run from the model's current weights: the
         backbone freeze split applied and a new optimizer.  (The JAX
         ``init_state`` draws the weights here; the port's ``build`` draws
-        them from its generator.)"""
+        them from its generator.)  Data parallel: rank 0's parameters and
+        buffers, broadcast."""
+        if self.distributed:
+            self._broadcast_from_first_rank(
+                list(self.model.parameters()) + list(self.model.buffers()))
         optimizer = optim_lib.make_optimizer(self.model, self.config.grad_clip,
                                              self.config.learning_rate)
         return TrainState(self.model, optimizer, 0)
 
+    def _broadcast_from_first_rank(self, tensors):
+        import torch.distributed as dist
+
+        by_dtype = collections.defaultdict(list)
+        for t in tensors:
+            by_dtype[t.dtype].append(t)
+        with torch.no_grad():
+            for group in by_dtype.values():
+                flat = torch.cat([t.reshape(-1) for t in group])
+                dist.broadcast(flat, src=dist.get_global_rank(self._group, 0),
+                               group=self._group)
+                torch._foreach_copy_(group, [v.view_as(t) for v, t in zip(
+                    flat.split([t.numel() for t in group]), group)])
+
     # ----------------------------------------------------------------- steps
+    def _parallel(self):
+        """The data-parallel context of the model code: global BatchNorm
+        statistics, dropout masks and dedup gather (a no-op at one rank)."""
+        return collectives.data_parallel(self.mesh)
+
     def _train_loss(self, batch, generator):
         model = self.model
         if not model.training:
             model.train()
         forecast, _ = model(batch, generator=generator)
         target, pred = target_and_pred(batch, forecast)
-        return mse_loss(target, pred, expand_mask(batch, target))
+        return mse_loss(target, pred, expand_mask(batch, target), group=self._group)
+
+    def _reduce_gradients(self, loss):
+        """Data parallel: one all-reduce sums the gradients, the loss and
+        this rank's stop flag over the ranks; returns the global loss."""
+        import torch.distributed as dist
+
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        if any(g.dtype != loss.dtype for g in grads):
+            raise TypeError("data parallel training needs float32 gradients (the masters)")
+        requested = self._watch is not None and self._watch.requested
+        flat = torch.cat([g.reshape(-1) for g in grads] + [
+            loss.detach().reshape(1),
+            torch.full((1,), float(requested), dtype=loss.dtype, device=loss.device)])
+        dist.all_reduce(flat, group=self._group)
+        torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(
+            flat[:-2].split([g.numel() for g in grads]), grads)])
+        self._stop_flag = flat[-1:]
+        return flat[-2]
 
     def train_step(self, state: TrainState, batch):
-        """One update from ``batch``; returns ``(state, {"loss": tensor})``."""
+        """One update from ``batch``; returns ``(state, {"loss": tensor})``.
+        Data parallel: ``batch`` is this rank's rows, the loss the global
+        batch's."""
         batch = to_device(batch, self.device)
         generator = step_generator(self.config.seed + DROPOUT_SEED_OFFSET, state.step,
                                    self.device)
-        loss = self._train_loss(batch, generator)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with self._parallel():
+            loss = self._train_loss(batch, generator)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if self.distributed:
+            loss = self._reduce_gradients(loss)
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach()}
 
     def accum_train_step(self, state: TrainState, batches):
         """One update from a list of microbatches: their gradients at the
-        same parameters, summed in order and divided by their number."""
+        same parameters, summed in order (and over the ranks) and divided by
+        their number."""
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = 0.0
-        for i, batch in enumerate(batches):
-            generator = step_generator(self.config.seed + DROPOUT_SEED_OFFSET, state.step,
-                                       self.device, micro=i)
-            loss = self._train_loss(to_device(batch, self.device), generator)
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
+        with self._parallel():
+            for i, batch in enumerate(batches):
+                generator = step_generator(self.config.seed + DROPOUT_SEED_OFFSET,
+                                           state.step, self.device, micro=i)
+                loss = self._train_loss(to_device(batch, self.device), generator)
+                loss.backward()
+                loss_sum = loss_sum + loss.detach()
+        if self.distributed:
+            loss_sum = self._reduce_gradients(loss_sum)
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         torch._foreach_div_(grads, float(len(batches)))
         state.optimizer.step()
@@ -231,29 +371,43 @@ class Trainer:
                 group = []
 
     # ------------------------------------------------------------------ eval
-    def eval_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        """The masked partial sums of one batch, on the device."""
+    def _eval_sums(self, batch) -> torch.Tensor:
+        """This rank's masked partial sums of one batch, float64 in
+        ``SUM_KEYS`` order, on the device."""
         model = self.model
         if model.training:
             model.eval()
         batch = to_device(batch, self.device)
-        with torch.inference_mode():
+        with torch.inference_mode(), self._parallel():
             forecast, _ = model(batch)
             target, pred = target_and_pred(batch, forecast)
-            return eval_metrics(target, pred, expand_mask(batch, target),
+            part = eval_metrics(target, pred, expand_mask(batch, target),
                                 norm_scalar=self.config.norm_scalar)
+            return torch.stack([part[k] for k in SUM_KEYS]).double()
+
+    def _sum_over_ranks(self, sums: torch.Tensor) -> torch.Tensor:
+        if self.distributed:
+            import torch.distributed as dist
+
+            with torch.inference_mode():
+                dist.all_reduce(sums, group=self._group)
+        return sums
+
+    def eval_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        """The masked partial sums of one (global) batch, on the device."""
+        sums = self._sum_over_ranks(self._eval_sums(batch))
+        return dict(zip(SUM_KEYS, sums.unbind()))
 
     def evaluate(self, state: TrainState, loader) -> Dict[str, float]:
         sums = None
         for batch in loader:
-            part = self.eval_step(state, batch)
-            part = torch.stack([part[k] for k in SUM_KEYS]).double()
+            part = self._eval_sums(batch)
             sums = part if sums is None else sums + part
         if sums is None:
             raise ValueError(
                 "evaluate() got a loader with zero batches — the validation split is "
                 "empty (or smaller than batch_size with drop_remainder)")
-        out = finalize_metrics(dict(zip(SUM_KEYS, sums.tolist())))
+        out = finalize_metrics(dict(zip(SUM_KEYS, self._sum_over_ranks(sums).tolist())))
         return {"val_mae": out["mae"], "val_wWAPE": out["wape"]}
 
     # ------------------------------------------------------------------- fit
@@ -273,10 +427,22 @@ class Trainer:
         if state is None:
             state = self.init_state()
         steps_per_epoch = len(train_loader) // max(1, A)
+        if not self.is_main:
+            log_fn = None  # rank 0 alone logs and writes
         with PreemptionWatch() as watch:
-            return self._fit_epochs(train_loader, val_loader, state, time.time(),
-                                    self.config.trace_dir is not None, steps_per_epoch,
-                                    start_epoch, skip_steps, checkpointer, log_fn, watch)
+            self._watch = watch
+            try:
+                state = self._fit_epochs(
+                    train_loader, val_loader, state, time.time(),
+                    self.config.trace_dir is not None and self.is_main, steps_per_epoch,
+                    start_epoch, skip_steps, checkpointer, log_fn, _StopAgreement(self))
+            finally:
+                self._watch = None
+        if self.distributed:
+            import torch.distributed as dist
+
+            dist.barrier(group=self._group)  # rank 0's saves are on disk for every rank
+        return state
 
     def _log(self, metrics, log_fn):
         self.history.append(metrics)
@@ -284,8 +450,12 @@ class Trainer:
             log_fn(metrics)
 
     def _fit_epochs(self, train_loader, val_loader, state, t0, want_trace,
-                    steps_per_epoch, start_epoch, skip_steps, checkpointer, log_fn, watch):
-        can_save_last = checkpointer is not None and hasattr(checkpointer, "save_preempted")
+                    steps_per_epoch, start_epoch, skip_steps, checkpointer, log_fn, stop):
+        watch = self._watch
+        # Every rank reads the checkpointer (a resume's early-stop count);
+        # rank 0 alone saves.
+        saver = checkpointer if self.is_main else None
+        can_save_last = saver is not None and hasattr(saver, "save_preempted")
         autosave_s = self.config.autosave_minutes * 60.0
         next_autosave = time.time() + autosave_s
         best_monitor, stale_epochs = np.inf, 0
@@ -302,7 +472,7 @@ class Trainer:
             skip = skip_steps if epoch == start_epoch else 0
             losses = []
             for batch in self._train_inputs(train_loader, skip_groups=skip):
-                if watch.requested:
+                if stop.requested():
                     break
                 if want_trace and epoch == start_epoch and (
                         len(losses) == 1 or steps_per_epoch == 1):
@@ -314,20 +484,21 @@ class Trainer:
                     want_trace = False
                 else:
                     state, m = self._dispatch_step(state, batch)
+                stop.after_step()
                 losses.append(m["loss"])
                 done = skip + len(losses)
                 if autosave_s and can_save_last and not watch.requested \
                         and time.time() >= next_autosave:
-                    checkpointer.save_preempted(epoch, state, steps_into_epoch=done)
+                    saver.save_preempted(epoch, state, steps_into_epoch=done)
                     next_autosave = time.time() + autosave_s
-                if watch.requested:
+                if stop.requested():
                     break
-            if watch.requested:
+            if stop.requested(lag=0):
                 # SIGTERM: save this step boundary into the ``last`` slot and
                 # stop, with no validation in the grace window.
                 done = skip + len(losses)
                 if can_save_last:
-                    checkpointer.save_preempted(epoch, state, steps_into_epoch=done)
+                    saver.save_preempted(epoch, state, steps_into_epoch=done)
                 self._log({"epoch": epoch, "preempted": True, "steps_into_epoch": done,
                            "wall_s": time.time() - t0}, log_fn)
                 return state
@@ -355,8 +526,8 @@ class Trainer:
                     if stale_epochs >= patience:
                         metrics["early_stopped"] = stale_epochs
             self._log(metrics, log_fn)
-            if checkpointer is not None:
-                checkpointer.save(epoch, state, metrics)
+            if saver is not None:
+                saver.save(epoch, state, metrics)
             if metrics.get("early_stopped"):
                 return state
         return state
