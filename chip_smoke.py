@@ -147,6 +147,42 @@ then, each phase printing one JSON line and any failure exiting non-zero:
    parameter's movement against one process by ``_compare_training``'s
    rules reported by group (the backbone's BatchNorms, its convolutions,
    the rest), and the kernel library not rebuilt by the children;
+16l. tensor_parallel (after data_parallel) — tensor parallelism
+   (``parallel/sharding.py``) at full width: (a) ``model = 1`` is
+   data_parallel's (a), one NCCL rank bit for bit the plain ``Trainer``;
+   (b) gated_v4 (ResNet-101 at 299², bf16 backbone, E=32, H=64,
+   ``tp_min_dim`` 64, global B=64, 3 steps, dropout on) as two gloo ranks
+   of a data=1 x model=2 mesh on this card, beside one process alone, each
+   a worker process (``chip_smoke.py --tensor-parallel-rank SPEC``) with
+   its own time limit: the sharded parameters' count equal on the ranks
+   and to the rule on the CPU; each rank's resident bytes of parameters and
+   Adafactor state equal to the prediction from the sharded set (sharded
+   parameters and their state halved, the rest whole), one process's too;
+   peak memory a process; the ranks' losses equal and within ``DP_RTOL`` of
+   one process at every step; the replicated parameters and the buffers
+   the same bits on both ranks (digests), with cuDNN free to pick
+   nondeterministic algorithms and rank 1 moving its replicated gradients
+   and buffers an ulp before each sync, so that only the sync's rule keeps
+   them equal; 2 ``fused_gated_residual`` launches a step a rank;
+   a one-pass ``score_split`` over the mesh equal on the ranks; a
+   checkpoint saved under the mesh (rank 0 writes the gathered state)
+   restored into a plain model scoring the same WAPE and MAE bit for bit,
+   within the JAX dry run's 1e-3 WAPE and 1e-4 MAE; one process's own
+   trained eval reported beside; (c) cross_attn_rnn_210 (tiny backbone at
+   64², E=A=H=32, ``out_len`` 10, teacher forcing at 0.5, ``tp_min_dim``
+   16) on the same mesh: one step, 30 additive launches a forward, no
+   ``w_i`` / ``w_h`` sharded, decoder kernels among the sharded ones, the
+   rule's count, eval WAPE within 1e-3 of one process.  ``python3
+   chip_smoke.py --tensor-parallel-cards 4`` runs, alone, gated_v4 at the
+   main path's B=128 on a (data=2, model=2) and then a (data=4, model=1)
+   NCCL mesh over four cards: ms a step, host syncs in a step, a profiled
+   step's non-NCCL device ms as a share of the event-timed step, peak
+   memory and resident bytes a rank; then the witnesses, held at every
+   step within ``DP_RTOL``: (2, 2) against (2, 1), the same 64 rows a rank,
+   deterministic cuDNN, whose first update's parameters agree within
+   ``TP_CARDS_PARAM_RTOL``, and (2, 2) against (4, 1) with a float32
+   backbone (in bf16 the data axis's rounding at 64 against 32 rows a rank
+   moves the two meshes apart by more than 2^-8: reported);
 16e'. artifact_serve — the serving path from a full-width gated_v4
    checkpoint (seeded weights saved as ``train_transformer`` saves them,
    with its ``hparams.json``; bf16 backbone, B=128): ``cli.export`` (no
@@ -313,7 +349,8 @@ artifact_serve's in-process forwards, ``launches_w8a8_cli`` the w8a8
 phase's ``forecast_transformer --quantize w8a8`` run, rows 1, 3 and 4's ``launches_train`` a
 train step's forward and backward and an eval forward's, row 3's
 ``launches_legacy`` the legacy attention's, ``launches_data_parallel`` the
-data_parallel phase's one-rank steps), the
+data_parallel phase's one-rank steps, ``launches_tensor_parallel`` rank 0's
+a tensor-parallel step (row 1) and a 2-10 forward (row 3)), the
 ``nvidia-smi`` line and,
 last, the ``ok`` line.  Without a CUDA device it exits non-zero before
 printing any result.
@@ -380,7 +417,7 @@ HARNESS_TARGET_S = 0.2   # device seconds per harness measurement
 PROFILE_CALLS = 100
 # Calls of the trend GRU's paths (gru_kernel_times) timed and profiled: the
 # plain step loop launches ~500 kernels a call.
-GRU_TIMED_CALLS = 20
+GRU_TIMED_CALLS = 10
 CROSS_ATTN_DIMS = dict(attention_dim=512, embedding_dim=512, hidden_dim=512)
 # The forecast CLIs' split: 1,000 rows, 4 rows a photo (250 photos at 299²),
 # so 8 batches of 128, the last with 104 real rows.
@@ -478,6 +515,26 @@ DP_DEMO_LR = TRAIN_LR
 # over those features, so it is held to the same share.
 DP_RTOL = BF16_SAME_RTOL
 DATA_PLANE_PROFILED_STEPS = 3  # a profiler window's train steps (its post-processing is slow)
+# Tensor parallel (tensor_parallel): the full-width gated_v4 on a data=1 x
+# model=2 mesh of two gloo ranks on this card against one process, this
+# global batch and steps, parameters sharded at this width (the JAX
+# Trainer's default); the losses within DP_RTOL, the one-pass eval within
+# the JAX dry run's bounds; then cross_attn_rnn_210 at a small width
+# (__graft_entry__.py's dry run: tp_min_dim 16, teacher forcing at 0.5).
+TP_BATCH, TP_STEPS, TP_MIN_DIM, TP_EVAL_BATCHES = 64, 3, 64, 2
+TP_WAPE_ATOL, TP_MAE_ATOL = 1e-3, 1e-4
+TP_210_DIMS = dict(attention_dim=32, embedding_dim=32, hidden_dim=32, image_arch="tiny",
+                   out_len=10, use_teacher_forcing=True, teacher_forcing_ratio=0.5)
+TP_210_MIN_DIM, TP_210_BATCH, TP_210_IMAGE, TP_210_LAUNCHES = 16, 16, 64, 30
+TP_CHILD_TIMEOUT_S = 420
+TP_WORKER_FLAG = "--tensor-parallel-rank"  # a rank of the phase, spawned by it
+# The four-card check (tensor_parallel_cards, run alone): (data=2, model=2)
+# and (data=4, model=1) NCCL meshes at the main path's global batch, timed;
+# then the witnesses: (2, 2) against (2, 1), the same 64 rows a rank, with
+# deterministic cuDNN, whose first update may differ only by the order of
+# the model group's sums (each tensor within TP_CARDS_PARAM_RTOL of its
+# largest element); and (2, 2) against (4, 1) with a float32 backbone.
+TP_CARDS_STEPS, TP_CARDS_TIMED, TP_CARDS_PARAM_RTOL = 3, 4, 1e-6
 
 
 def _require(cond, msg):
@@ -1902,7 +1959,7 @@ def _data_parallel_phase(dev, card, zero_counts, counted):
     demo = [sys.executable, "-m", "visuelle2_tpu_torch.parallel.demo_multihost",
             "--device", "cuda", "--image_arch", TRAIN_ARCH, "--image_size", str(IMAGE),
             "--bf16_backbone", "--global_batch", str(B), "--steps", str(DP_DEMO_STEPS),
-            "--learning_rate", str(DP_DEMO_LR)]
+            "--learning_rate", str(DP_DEMO_LR), "--model_axis", "1"]
     build_dir = os.path.join(root, "build")
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -1966,6 +2023,477 @@ def _data_parallel_phase(dev, card, zero_counts, counted):
     for name, ok in checks.items():
         _require(ok, f"data_parallel: {name}")
     return launches
+
+
+def _tp_predicted_bytes(model, dims, m):
+    """A rank's resident bytes of parameters and Adafactor state, predicted
+    from the sharded set ``dims`` at a model axis of ``m``: a sharded
+    parameter and each of its states that keeps the sharded dim divided by
+    ``m``; frozen parameters hold no state."""
+    from visuelle2_tpu_torch.train import optim
+
+    total = 0
+    for name, p in model.named_parameters():
+        dim, shape, size = dims.get(name), tuple(p.shape), p.element_size()
+        total += p.numel() * size // (m if dim is not None else 1)
+        if optim.is_frozen(name):
+            continue
+        if optim.factored_dims(shape) is None:
+            states = [("v", int(np.prod(shape)))]
+        else:
+            d1, d0 = optim.factored_dims(shape)
+            states = [("v_row", int(np.prod(shape)) // shape[d0]),
+                      ("v_col", int(np.prod(shape)) // shape[d1])]
+        for key, n in states:
+            split = dim is not None and optim.state_shard_dim(key, shape, dim) is not None
+            total += n * size // (m if split else 1)
+    return total
+
+
+def _tp_digest(t):
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _tp_worker(spec):
+    """One rank of the tensor_parallel phase (or the process alone, at
+    ``world`` 1; or a rank of ``tensor_parallel_cards``): prints one JSON
+    line."""
+    from visuelle2_tpu_torch.data.loader import shard_batch
+    from visuelle2_tpu_torch.eval.forecast import score_split
+    from visuelle2_tpu_torch.models import VocabSizes, build
+    from visuelle2_tpu_torch.ops.cuda.gated_fusion import fused_gated_residual
+    from visuelle2_tpu_torch.parallel import distributed, sharding
+    from visuelle2_tpu_torch.parallel.mesh import LocalMesh, make_mesh, mesh_shape
+    from visuelle2_tpu_torch.train import loop
+    from visuelle2_tpu_torch.train.checkpoint import CheckpointManager, plain_payload
+
+    # The main path's settings (``main``): TF32 off, cuDNN free to pick
+    # nondeterministic algorithms; a witness asks for deterministic ones.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = bool(spec.get("deterministic"))
+    world, rank, m = spec["world"], spec["rank"], spec["model_axis"]
+    gb, image, arch = spec["batch"], spec["image"], spec["arch"]
+    if world > 1:
+        dev = distributed.initialize(f"127.0.0.1:{spec['port']}", world, rank,
+                                     device=spec["device"], backend=spec["backend"])
+        mesh = make_mesh(model=m)
+    else:
+        dev, mesh = torch.device(spec["device"]), None
+    cuda = dev.type == "cuda"
+    out = {"rank": rank, "world": world, "mesh": mesh_shape(mesh) if mesh else None}
+    vocab = VocabSizes(5, 6, 5, 126)
+    try:
+        def v4():
+            return build("gated_v4", device=dev, generator=torch.Generator().manual_seed(23),
+                         vocab=vocab, image_dtype=torch.bfloat16 if cuda and not spec.get(
+                             "f32_backbone") else torch.float32,
+                         image_arch=arch)
+
+        model = v4()
+        dims = (sharding.infer_param_sharding(model, mesh, TP_MIN_DIM) if mesh is not None
+                else {})
+        out["sharded"] = sum(d is not None for d in dims.values())
+        out["predicted_resident_bytes"] = _tp_predicted_bytes(model, dims, m)
+        trainer = loop.Trainer(model, loop.TrainConfig(
+            grad_clip=0.5, learning_rate=TRAIN_LR, tp_min_dim=TP_MIN_DIM), mesh=mesh)
+        state = trainer.init_state()
+        moved = ([0] if not spec.get("perturb_replicas") or trainer.model_rank != 1
+                 else _tp_perturb_replicas(trainer))
+        batches = [shard_batch(_synthetic_batch(gb, image, seed=900 + i), mesh, device=dev)
+                   for i in range(spec["steps"])]
+        fused_gated_residual.launches = 0
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = []
+        for b in batches:
+            state, metrics = trainer.train_step(state, b)
+            losses.append(metrics["loss"])
+            if spec.get("state_after_first_step") and len(losses) == 1:
+                plain = sharding.plain_state_dict(model)  # every rank gathers
+                if rank == 0:
+                    torch.save({k: v.detach().cpu() for k, v in plain.items()},
+                               spec["state_after_first_step"])
+                del plain
+        out["losses"] = [float(v) for v in losses]
+        out["perturbed_tensors"] = moved[0]
+        out["steps_wall_s"] = time.perf_counter() - t0
+        out["launches_per_step"] = {"fused_gated_residual":
+                                    fused_gated_residual.launches / len(batches)}
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+        out["resident_bytes"] = sharding.resident_bytes(model, state.optimizer)
+        shards = sharding.parameter_shards(model)
+        out["replicated_digests"] = {
+            **{sharding.plain_name(n): _tp_digest(p) for n, p in model.named_parameters()
+               if p not in shards},
+            **{n: _tp_digest(b) for n, b in model.named_buffers()}}
+        if spec.get("timed"):
+            out.update(_tp_timed_steps(trainer, state, batches))
+        evals = [_synthetic_batch(gb, image, seed=950 + i) for i in range(TP_EVAL_BATCHES)]
+        r = score_split(model.eval(), [shard_batch(b, mesh, device=dev) for b in evals], mesh=mesh,
+                        one_pass=True, measure_throughput=False)
+        out["eval"] = {"wape": r.wape, "mae": r.mae, "rows": r.num_forecasts}
+        if spec.get("ckpt_dir"):
+            if trainer.is_main:
+                CheckpointManager(spec["ckpt_dir"]).save(0, state, {"val_wWAPE": r.wape})
+            else:
+                plain_payload(state)
+            if world > 1:
+                import torch.distributed as dist
+
+                dist.barrier()
+            if trainer.is_main:
+                plain = CheckpointManager(spec["ckpt_dir"], read_only=True).restore_for_eval(
+                    v4(), 0)
+                rp = score_split(plain, [shard_batch(b, None, device=dev) for b in evals],
+                                 mesh=LocalMesh(device_type=dev.type), one_pass=True,
+                                 measure_throughput=False)
+                out["restored_plain_eval"] = {"wape": rp.wape, "mae": rp.mae}
+                del plain
+        del trainer, state, model, batches
+        if spec.get("with_210"):
+            out["rnn_210"] = _tp_worker_210(mesh, dev, vocab)
+    finally:
+        if world > 1:
+            distributed.shutdown()
+    print(json.dumps(out), flush=True)
+
+
+def _tp_perturb_replicas(trainer):
+    """Model rank 1 moves its replicated gradients and float buffers one
+    ulp before each step's model-group sync, as a nondeterministic kernel
+    would: the ranks' replicas then stay bit-equal only through the sync's
+    rule (rank 0's values).  Returns a one-element list, how many tensors
+    the last step moved."""
+    from visuelle2_tpu_torch.parallel import sharding
+
+    model, sync = trainer.model, trainer._sync_model_ranks
+    shards = sharding.parameter_shards(model)
+    moved = [0]
+
+    def perturbed(loss, flags):
+        with torch.no_grad():
+            tensors = [p.grad for p in model.parameters()
+                       if p.grad is not None and p not in shards]
+            tensors += [b for b in model.buffers() if b.dtype == loss.dtype]
+            for t in tensors:
+                t.copy_(torch.nextafter(t, torch.full_like(t, float("inf"))))
+            moved[0] = len(tensors)
+        return sync(loss, flags)
+
+    trainer._sync_model_ranks = perturbed
+    return moved
+
+
+def _tp_worker_210(mesh, dev, vocab):
+    """The tensor_parallel phase's part (c): cross_attn_rnn_210 at a small
+    width, one teacher-forced step and a one-pass eval over ``mesh``."""
+    from visuelle2_tpu_torch.data.loader import shard_batch
+    from visuelle2_tpu_torch.eval.forecast import score_split
+    from visuelle2_tpu_torch.models import build
+    from visuelle2_tpu_torch.ops.cuda.additive_attention import fused_additive_attention
+    from visuelle2_tpu_torch.parallel import sharding
+    from visuelle2_tpu_torch.train import loop
+
+    model = build("cross_attn_rnn_210", device=dev, generator=torch.Generator().manual_seed(29),
+                  vocab=vocab, **TP_210_DIMS)
+    names = ([n for n, d in sharding.infer_param_sharding(model, mesh, TP_210_MIN_DIM).items()
+              if d is not None] if mesh is not None else [])
+    trainer = loop.Trainer(model, loop.TrainConfig(learning_rate=TRAIN_LR,
+                                                   tp_min_dim=TP_210_MIN_DIM), mesh=mesh)
+    state = trainer.init_state()
+    horizon = TP_210_DIMS["out_len"]
+    batch = _stfore_batch(TP_210_BATCH, TP_210_IMAGE, seed=960, horizon=horizon)
+    state, metrics = trainer.train_step(state, shard_batch(batch, mesh, device=dev))
+    fused_additive_attention.launches = 0
+    evals = [shard_batch(_stfore_batch(TP_210_BATCH, TP_210_IMAGE, seed=970 + i,
+                                       horizon=horizon), mesh, device=dev) for i in range(2)]
+    r = score_split(model.eval(), evals, mesh=mesh, one_pass=True, measure_throughput=False)
+    return {"loss": float(metrics["loss"]), "sharded": len(names),
+            "recurrence_sharded": [n for n in names if n.rsplit(".", 1)[-1] in ("w_i", "w_h")],
+            "decoder_sharded": [n for n in names if "decoder" in n],
+            "additive_launches_per_forward": fused_additive_attention.launches / r.forwards,
+            "eval": {"wape": r.wape, "mae": r.mae}}
+
+
+def _tp_timed_steps(trainer, state, batches):
+    """ms a step (CUDA events over ``TP_CARDS_TIMED`` steps), host syncs in
+    a step, and a profiled step's device ms with and without NCCL's kernels,
+    their share taken of the event-timed step (the profiler stretches its
+    own step's wall time)."""
+    cycle = itertools.cycle(batches)
+    trainer.train_step(state, next(cycle))
+    ms = _cuda_ms(lambda: trainer.train_step(state, next(cycle)), TP_CARDS_TIMED)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.train_step(state, next(cycle))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sorted({str(w.message)[:200] for w in caught
+                    if "called a synchronizing CUDA operation" in str(w.message)})
+    torch.cuda.synchronize()
+    with _profile() as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, next(cycle))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms = _device_us(prof) / 1e3
+    # NCCL's kernels spin while a peer is late: busy without them too.
+    comm_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                  and "nccl" in e.key.lower()) / 1e3
+    by_op = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+                   key=lambda kv: -kv[1])[:8]
+    return {"train_step_ms": ms, "host_syncs_in_a_step": syncs,
+            "profiled_step_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
+            "nccl_kernel_ms_per_step": comm_ms,
+            "device_ms_without_nccl": busy_ms - comm_ms,
+            "device_busy_share_without_nccl": (busy_ms - comm_ms) / ms,
+            "device_ms_by_op": dict(by_op)}
+
+
+def _tp_spawn(runs, root, timeout_s):
+    """Each ``{name: spec}`` as a worker process (``TP_WORKER_FLAG``), side by
+    side, each with its own time limit: their JSON lines by name.  A process
+    that fails or outlives its limit fails the phase."""
+    procs = {k: subprocess.Popen([sys.executable, os.path.join(root, "chip_smoke.py"),
+                                  TP_WORKER_FLAG, json.dumps(spec)], cwd=root,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for k, spec in runs.items()}
+    results, failed = {}, []
+    try:
+        for k, p in procs.items():
+            try:
+                stdout, stderr = p.communicate(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                stdout, stderr = p.communicate()
+            lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+            if p.returncode != 0 or not lines:
+                failed.append(f"{k} exit {p.returncode}: {stderr[-3000:]}")
+                continue
+            results[k] = json.loads(lines[-1])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    _require(not failed, f"tensor_parallel: a worker failed: {failed}")
+    return results
+
+
+def _tp_rule_count(name, min_dim, **kw):
+    """The sharded parameters the rule gives at model=2, on the CPU."""
+    import types
+
+    from visuelle2_tpu_torch.models import VocabSizes, build
+    from visuelle2_tpu_torch.parallel import sharding
+
+    model = build(name, device="cpu", vocab=VocabSizes(5, 6, 5, 126), **kw)
+    two = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
+    return sum(d is not None for d in sharding.infer_param_sharding(model, two, min_dim).values())
+
+
+def _tensor_parallel_phase(dev, card, counted):
+    """Phase tensor_parallel: the full-width gated_v4 on a data=1 x model=2
+    mesh of two gloo ranks on this card against one process, then
+    cross_attn_rnn_210 at a small width on the same mesh (see the module
+    docstring).  Returns the counted kernels' launches: a TP step's and a
+    210 forward's, rank 0."""
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    build_dir = os.path.join(root, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    base = {"device": "cuda", "batch": TP_BATCH, "image": IMAGE, "arch": TRAIN_ARCH,
+            "steps": TP_STEPS, "model_axis": 2, "backend": "gloo", "with_210": True,
+            "perturb_replicas": True}
+    port = _free_port()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        runs = {f"rank{r}": dict(base, world=2, rank=r, port=port,
+                                 ckpt_dir=os.path.join(tmp, "ck")) for r in (0, 1)}
+        runs["one_process"] = dict(base, world=1, rank=0, model_axis=1)
+        t0 = time.perf_counter()
+        res = _tp_spawn(runs, root, TP_CHILD_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+    r0, r1, one = res["rank0"], res["rank1"], res["one_process"]
+    rule = _tp_rule_count("gated_v4", TP_MIN_DIM, image_arch=TRAIN_ARCH)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"])]
+    c0, c1 = r0["rnn_210"], one["rnn_210"]
+    out = {
+        "model": "gated_v4", "global_batch": TP_BATCH, "image": IMAGE, "bf16_backbone": True,
+        "embedding_dim": 32, "hidden_dim": 64, "tp_min_dim": TP_MIN_DIM, "steps": TP_STEPS,
+        "mesh": r0["mesh"], "backend": "gloo (two ranks on one card)",
+        "sharded_params": {"rank0": r0["sharded"], "rank1": r1["sharded"], "cpu_rule": rule},
+        "resident_param_and_state_bytes": {
+            "rank0": r0["resident_bytes"], "rank1": r1["resident_bytes"],
+            "predicted_per_rank": r0["predicted_resident_bytes"],
+            "one_process": one["resident_bytes"],
+            "predicted_one_process": one["predicted_resident_bytes"]},
+        "peak_device_bytes": {"rank0": r0["peak_device_bytes"],
+                              "rank1": r1["peak_device_bytes"],
+                              "one_process": one["peak_device_bytes"]},
+        "losses": {"rank0": r0["losses"], "rank1": r1["losses"],
+                   "one_process": one["losses"]},
+        "loss_rel_diff": loss_rel,
+        "eval_rel_diff_vs_one_process_trained_alone": {
+            k: abs(r0["eval"][k] - one["eval"][k]) / abs(one["eval"][k]) for k in ("wape", "mae")},
+        "tol": {"loss_rtol": DP_RTOL, "wape_atol": TP_WAPE_ATOL,
+                                           "mae_atol": TP_MAE_ATOL},
+        "steps_wall_s": {"rank0": r0["steps_wall_s"], "one_process": one["steps_wall_s"]},
+        "launches_per_step": {"rank0": r0["launches_per_step"],
+                              "rank1": r1["launches_per_step"]},
+        "replicated_tensors": len(r0["replicated_digests"]),
+        "rank1_tensors_moved_an_ulp_before_each_sync": r1["perturbed_tensors"],
+        "eval": {"rank0": r0["eval"], "rank1": r1["eval"], "one_process": one["eval"],
+                 "restored_plain": r0["restored_plain_eval"]},
+        "rnn_210": {"rank0": c0, "rank1": r1["rnn_210"], "one_process": c1,
+                    "cpu_rule_sharded": _tp_rule_count("cross_attn_rnn_210", TP_210_MIN_DIM,
+                                                       **TP_210_DIMS)},
+        "model_1_mesh": "data_parallel (a): one NCCL rank = the plain Trainer, bit for bit",
+        "spawn_s": spawn_s}
+    checks = {
+        "sharded: the ranks and the CPU rule agree": r0["sharded"] == r1["sharded"] == rule > 0,
+        "resident bytes: as predicted": r0["resident_bytes"] == r1["resident_bytes"]
+        == r0["predicted_resident_bytes"],
+        "resident bytes: one process as predicted":
+            one["resident_bytes"] == one["predicted_resident_bytes"],
+        "ranks: equal losses": r0["losses"] == r1["losses"],
+        "ranks: finite losses": bool(np.isfinite(r0["losses"]).all()),
+        "ranks vs one: losses": max(loss_rel) <= DP_RTOL,
+        # Rank 1 moves its replicated gradients and buffers an ulp before
+        # each sync, so only the sync's rule keeps the replicas equal.
+        "rank 1 moved its replicas before each sync": r1["perturbed_tensors"] > 0
+        and r0["perturbed_tensors"] == 0,
+        "replicated parameters and buffers bit-equal across ranks":
+            r0["replicated_digests"] == r1["replicated_digests"],
+        "2 gated-residual launches a step a rank": all(
+            r["launches_per_step"]["fused_gated_residual"] == 2 for r in (r0, r1)),
+        "ranks: equal eval": r0["eval"] == r1["eval"],
+        # The dry run's comparison: one process scoring the same parameters
+        # (the ranks' checkpoint restored into a plain model).
+        "eval vs one process, same parameters: WAPE": abs(
+            r0["eval"]["wape"] - r0["restored_plain_eval"]["wape"]) <= TP_WAPE_ATOL,
+        "eval vs one process, same parameters: MAE": abs(
+            r0["eval"]["mae"] - r0["restored_plain_eval"]["mae"]) <= TP_MAE_ATOL,
+        "checkpoint restored into a plain model: the same metrics bit for bit":
+            r0["restored_plain_eval"] == {k: r0["eval"][k] for k in ("wape", "mae")},
+        "210: 30 additive launches a forward": c0["additive_launches_per_forward"]
+        == TP_210_LAUNCHES == r1["rnn_210"]["additive_launches_per_forward"],
+        "210: w_i / w_h not sharded": not c0["recurrence_sharded"],
+        "210: a decoder kernel sharded": bool(c0["decoder_sharded"]),
+        "210: the CPU rule's count": c0["sharded"] == out["rnn_210"]["cpu_rule_sharded"],
+        "210: eval WAPE vs one": abs(c0["eval"]["wape"] - c1["eval"]["wape"]) <= TP_WAPE_ATOL}
+    _emit({"phase": "tensor_parallel", **card, **out,
+           "failed": sorted(k for k, ok in checks.items() if not ok),
+           "phase_s": time.perf_counter() - t_phase})
+    for name, ok in checks.items():
+        _require(ok, f"tensor_parallel: {name}")
+    launches = {n: 0 for n in counted}
+    launches["fused_gated_residual"] = r0["launches_per_step"]["fused_gated_residual"]
+    launches["fused_additive_attention"] = c0["additive_launches_per_forward"]
+    return launches
+
+
+def _tp_state_gap(path_a, path_b):
+    """Two saved plain states: how many tensors differ, and the largest
+    difference of a tensor relative to its largest element."""
+    a, b = torch.load(path_a), torch.load(path_b)
+    rel = {k: ((a[k].double() - b[k].double()).abs().max()
+               / b[k].double().abs().max().clamp_min(1e-30)).item() for k in b}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    return {"tensors": len(rel), "tensors_differing": sum(v > 0 for v in rel.values()),
+            "max_rel": max(rel.values()), "worst": worst}
+
+
+def tensor_parallel_cards(cards=4):
+    """The four-card check, run alone (``python3 chip_smoke.py
+    --tensor-parallel-cards 4``): gated_v4 at full width (global B=128) on a
+    (data=2, model=2) NCCL mesh over ``cards`` cards, then on (data=4,
+    model=1), timed with the main path's settings: ms a step, host syncs,
+    busy share, peak memory and resident bytes a rank.  Then the witnesses
+    (``TP_CARDS_PARAM_RTOL``'s comment), whose losses are held to each
+    other within 2^-8 at every step."""
+    from visuelle2_tpu_torch.ops.cuda import _build
+
+    _require(torch.cuda.device_count() >= cards,
+             f"tensor_parallel_cards: {torch.cuda.device_count()} cards, need {cards}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    build_dir = os.path.join(root, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    _build.load_library()  # once, before the workers load it
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()
+    base = {"device": "cuda", "batch": B, "image": IMAGE, "arch": TRAIN_ARCH,
+            "steps": TP_CARDS_STEPS, "backend": "nccl"}
+    timed_keys = ("train_step_ms", "profiled_step_ms", "device_busy_ms_per_step",
+                  "nccl_kernel_ms_per_step", "device_ms_without_nccl",
+                  "device_busy_share_without_nccl", "peak_device_bytes", "resident_bytes",
+                  "predicted_resident_bytes", "sharded", "host_syncs_in_a_step")
+    meshes = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        first = {m: os.path.join(tmp, f"model{m}.pt") for m in (2, 1)}
+        for name, world, m, extra in (
+                ("data2_model2", cards, 2, {"timed": True}),
+                ("data4_model1", cards, 1, {"timed": True}),
+                ("data2_model2_deterministic", cards, 2,
+                 {"deterministic": True, "state_after_first_step": first[2]}),
+                ("data2_model1_deterministic", cards // 2, 1,
+                 {"deterministic": True, "state_after_first_step": first[1]}),
+                ("data2_model2_f32", cards, 2, {"f32_backbone": True}),
+                ("data4_model1_f32", cards, 1, {"f32_backbone": True})):
+            port = _free_port()
+            t0 = time.perf_counter()
+            res = _tp_spawn({f"rank{r}": dict(base, world=world, rank=r, port=port,
+                                              model_axis=m, **extra)
+                             for r in range(world)}, root, TP_CHILD_TIMEOUT_S)
+            keys = ("losses", "eval") + (timed_keys if extra.get("timed") else ())
+            meshes[name] = {"mesh": res["rank0"]["mesh"], "wall_s": time.perf_counter() - t0,
+                            **{k: {r: v[k] for r, v in res.items()} for k in keys}}
+            if extra.get("timed"):
+                meshes[name]["device_ms_by_op_rank0"] = res["rank0"]["device_ms_by_op"]
+        first_update = _tp_state_gap(first[2], first[1])
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(meshes[a]["losses"]["rank0"],
+                                                    meshes[b]["losses"]["rank0"])]
+
+    gaps = {"bf16 (2,2) vs (2,1), 64 rows a rank, deterministic":
+            rel("data2_model2_deterministic", "data2_model1_deterministic"),
+            "f32 (2,2) vs (4,1)": rel("data2_model2_f32", "data4_model1_f32"),
+            "bf16 (2,2) vs (4,1)": rel("data2_model2", "data4_model1"),
+            "bf16 (2,1) deterministic vs (4,1)": rel("data2_model1_deterministic",
+                                                      "data4_model1"),
+            "bf16 (2,2) vs (2,2) deterministic": rel("data2_model2",
+                                                     "data2_model2_deterministic")}
+    tp, dp = meshes["data2_model2"], meshes["data4_model1"]
+    checks = {
+        "(2,2) vs (2,1): losses within 2^-8 at every step": max(gaps[
+            "bf16 (2,2) vs (2,1), 64 rows a rank, deterministic"]) <= DP_RTOL,
+        "(2,2) vs (2,1): the first update's parameters within TP_CARDS_PARAM_RTOL":
+            first_update["max_rel"] <= TP_CARDS_PARAM_RTOL,
+        "f32 (2,2) vs (4,1): losses within 2^-8 at every step":
+            max(gaps["f32 (2,2) vs (4,1)"]) <= DP_RTOL,
+        "ranks' losses equal": all(len({tuple(v) for v in x["losses"].values()}) == 1
+                                   for x in meshes.values()),
+        "no host sync in a step": not any(s for x in (tp, dp)
+                                          for s in x["host_syncs_in_a_step"].values()),
+        "resident bytes as predicted": all(
+            x["resident_bytes"][r] == x["predicted_resident_bytes"][r]
+            for x in (tp, dp) for r in x["resident_bytes"])}
+    _emit({"tensor_parallel_cards": cards, "card": smi, "meshes": meshes,
+           "loss_rel_diff": gaps, "first_update_param_gap": first_update,
+           "tol": {"loss_rtol": DP_RTOL, "param_rtol": TP_CARDS_PARAM_RTOL},
+           "failed": sorted(k for k, ok in checks.items() if not ok)})
+    for name, ok in checks.items():
+        _require(ok, f"tensor_parallel_cards: {name}")
 
 
 def _train_demand_phase(dev, card, zero_counts, counted):
@@ -3209,7 +3737,7 @@ def _data_plane_phase(dev, card, zero_counts, counted):
         dedup_loader = common.build_loaders(dedup_args, demand=True, output_len=12,
                                             splits=("train",), dedup_train_images=True,
                                             pin_memory=dev.type == "cuda")[0]["train"]
-        dedup_ms = [epoch(dedup_loader) for _ in range(2)]
+        dedup_ms = [epoch(dedup_loader)]
         out["dedup_train"] = {
             "unique_image_slots": dedup_loader.unique_image_slots,
             "image_slots": dedup_loader.image_slots,
@@ -3247,6 +3775,10 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs on the GPU only")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == [TP_WORKER_FLAG]:
+        return _tp_worker(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--tensor-parallel-cards"]:
+        return tensor_parallel_cards(int(sys.argv[2]))
     from visuelle2_tpu_torch.eval.export import make_forecaster
     from visuelle2_tpu_torch.eval.server import drain_and_close, make_server
     from visuelle2_tpu_torch.models import VocabSizes, build
@@ -3819,6 +4351,9 @@ def main():
     # 16e''. data parallelism: one NCCL rank against the plain Trainer, two
     # gloo ranks of the demo against one process --------------------------------
     dp_launches = _data_parallel_phase(dev, card, zero_counts, counted)
+    # 16l. tensor parallelism: two gloo ranks of a data=1 x model=2 mesh on
+    # this card against one process, gated_v4 at full width and 2-10 ---------
+    tp_launches = _tensor_parallel_phase(dev, card, counted)
     # 16j. the data plane: the prefetch engine in turns, dedup training ----------
     _data_plane_phase(dev, card, zero_counts, counted)
     # 16e'. serving from an artifact: export, load, score, HTTP, SIGTERM, splice
@@ -4103,6 +4638,7 @@ def main():
         row["launches_artifact_serve"] = artifact_launches[row["name"]]
         row["launches_w8a8_cli"] = w8a8["launches_cli"][row["name"]]
         row["launches_data_parallel"] = dp_launches[row["name"]]
+        row["launches_tensor_parallel"] = tp_launches[row["name"]]
     _emit({"phase_seconds": _PHASE_SECONDS, "sum_s": sum(_PHASE_SECONDS.values())})
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)

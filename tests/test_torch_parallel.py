@@ -3,7 +3,8 @@ CPU: real processes joined over gloo, each feeding only its row block of
 the global batch, against one process on the same global batch and against
 the JAX ``Trainer``.
 
-* ``parallel.demo_multihost`` as two ranks and as one process (dropout on):
+* ``parallel.demo_multihost`` (``--model_axis 1``: data parallel) as two
+  ranks and as one process (dropout on):
   the ranks' losses and eval sums equal; against one process within atol
   1e-5 (losses) and rtol 2e-5 (eval sums), half and a fifth of the JAX
   demo test's 2e-5 and 1e-4 (``tests/test_multiprocess.py``); the port's
@@ -29,8 +30,8 @@ the JAX ``Trainer``.
   one epoch (four steps): the two runs' sums differ in order, and past a few
   steps Adafactor's sign-like updates carry a rounding at a ReLU input near
   zero into every later step (two epochs measured 3e-5 apart).
-* The refusals: a hybrid mesh that does not divide, ``make_mesh(model=2)``,
-  a world size that disagrees with the environment.
+* The refusals: a hybrid mesh that does not divide, a world size that
+  disagrees with the environment.
 
 Each spawn has its own time limit, so a hang fails its test.
 """
@@ -139,7 +140,7 @@ def _demo_cmds(extra_by_name):
     ``extra_by_name[name]`` arguments each."""
     port = _free_port()
     base = [sys.executable, "-m", "visuelle2_tpu_torch.parallel.demo_multihost",
-            "--device", "cpu"]
+            "--device", "cpu", "--model_axis", "1"]
     cmds = {}
     for name, extra in extra_by_name.items():
         if name.startswith("rank"):
@@ -399,6 +400,18 @@ def test_sigterm_on_one_rank_stops_every_rank_at_one_boundary(cases):
     assert r0["fit_saves"] == [["save_preempted", 0, 4]] and r1["fit_saves"] == []
 
 
+def test_autosave_over_ranks_happens_at_one_agreed_boundary(cases):
+    _, summaries = cases
+    r0, r1, one = summaries["rank0"], summaries["rank1"], summaries["one"]
+    # One process saves at every boundary its clock passes; over two ranks
+    # rank 0's deadline (due after step 1) rides in step 2's flags, read two
+    # steps later: one autosave after step 4, then the epoch's save.
+    assert one["autosave_saves"] == [["save_preempted", 0, i] for i in (1, 2, 3, 4)] + [
+        ["save", 0]]
+    assert r0["autosave_saves"] == [["save_preempted", 0, 4], ["save", 0]]
+    assert r1["autosave_saves"] == []
+
+
 # --------------------------------------------------------------------- the CLI
 def test_train_cli_under_a_launcher(tmp_path):
     dataset = make_synthetic_dataset(str(tmp_path / "ds"), num_train=32, num_test=16,
@@ -430,13 +443,6 @@ def test_train_cli_under_a_launcher(tmp_path):
 
 
 # ---------------------------------------------------------------- the refusals
-def test_make_mesh_refuses_tensor_parallelism():
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        mesh_lib.make_mesh(model=2)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        distributed.make_hybrid_mesh(model=2)
-
-
 def test_a_single_process_mesh_has_the_jax_axes_and_placements():
     from torch.distributed.tensor import Replicate, Shard
 

@@ -230,6 +230,20 @@ def case_fit_sigterm(mesh, out, summary):
     summary["fit_saves"] = saves.calls
 
 
+def case_fit_autosave(mesh, summary):
+    """``fit`` over 4 global batches with an autosave due at every step:
+    over a process group rank 0's deadline rides in the step's flags, read
+    two steps later, and rank 0 alone saves."""
+    batches = [shard_batch(synthetic_global_batch(GLOBAL, 64, seed=40 + i), mesh)
+               for i in range(4)]
+    trainer = _trainer("gated_v4", mesh, config=loop.TrainConfig(
+        epochs=1, grad_clip=0.5, learning_rate=LR, autosave_minutes=1e-9))
+    saves = _Saves()
+    with dropout.disabled():
+        trainer.fit(batches, batches[:1], checkpointer=saves)
+    summary["autosave_saves"] = saves.calls
+
+
 def _rank(mesh):
     from visuelle2_tpu_torch.parallel.mesh import batch_rank_world
 
@@ -261,6 +275,7 @@ def main(argv=None):
             case(mesh, out)
         case_score_split(mesh, out, args.dataset)
         case_fit_sigterm(mesh, out, summary)
+        case_fit_autosave(mesh, summary)
         np.savez(os.path.join(args.out, f"rank{args.rank}.npz"),
                  **{k: v.detach().numpy() for k, v in out.items()})
         print(json.dumps(summary), flush=True)

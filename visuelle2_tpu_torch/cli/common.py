@@ -17,9 +17,13 @@ or the CPU over gloo with ``--device cpu``) and train or score data
 parallel over ``make_mesh()``, each rank on its row block of every global
 ``--batch_size`` batch; rank 0 alone writes files and prints the result
 lines.  This is the counterpart of the JAX CLIs' mesh over every device.
-With one process they run as before.  ``--export``, ``--dump_attention``
-and ``--quantize w8a8|auto`` score or calibrate on one process only and are
-refused under a launcher.
+With one process they run as before.  The forecast options give one
+process's files under a launcher too: ``--quantize w8a8|auto`` calibrates
+on every rank on the batches one process would (``one_process_loader``),
+so the codes are one process's, and then scores over the mesh;
+``--dump_attention`` and ``--export`` are written by rank 0 from the first
+batch one process would see (its rows and its image slots), so the dump and
+the artifact are one process's bit for bit.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from visuelle2_tpu_torch.models.base import VocabSizes
 from visuelle2_tpu_torch.models.gtm_v1 import TextFeaturizer
 from visuelle2_tpu_torch.models.pretrained import load_backbone_npz, splice_backbone
 from visuelle2_tpu_torch.parallel import distributed
+from visuelle2_tpu_torch.parallel.distributed import is_main_process
 from visuelle2_tpu_torch.parallel.mesh import batch_rank_world, make_mesh
 
 
@@ -119,14 +124,6 @@ def resolve_cli_device(args) -> torch.device:
     return torch.device(f"cuda:{args.gpu_num}")
 
 
-def is_main_process() -> bool:
-    """Rank 0 of the process group, or the only process: the one that
-    writes files and prints result lines."""
-    import torch.distributed as dist
-
-    return not dist.is_initialized() or dist.get_rank() == 0
-
-
 @contextlib.contextmanager
 def launcher_mesh(args):
     """``(mesh, device)`` of a CLI run.  Under a launcher (``WORLD_SIZE`` >
@@ -144,17 +141,16 @@ def launcher_mesh(args):
         distributed.shutdown()
 
 
-def refuse_single_process_options(args, mesh):
-    """The forecast options that run on one process only: refused under a
-    launcher rather than run on one rank's rows."""
-    if batch_rank_world(mesh)[1] == 1:
-        return
-    for flag, on in (("--export", getattr(args, "export", "")),
-                     ("--dump_attention", getattr(args, "dump_attention", "")),
-                     ("--quantize w8a8|auto",
-                      getattr(args, "quantize", "") in ("w8a8", "auto"))):
-        if on:
-            raise SystemExit(f"{flag} runs on one process; run it without a launcher")
+def one_process_loader(loader: BatchLoader) -> BatchLoader:
+    """The split's loader as one process builds it: every row of each
+    batch, image slots not rounded to the ranks; ``loader`` itself at one
+    rank."""
+    if loader.world == 1:
+        return loader
+    return BatchLoader(loader.arrays, loader.images, loader.batch_size,
+                       shuffle=loader.shuffle, seed=loader.seed,
+                       drop_remainder=loader.drop_remainder, extras=loader.extras,
+                       dedup_images=loader.dedup_images, pin_memory=loader.pin_memory)
 
 
 def add_quantize_calib_args(p):
@@ -208,7 +204,8 @@ def resolve_quantize(args, loader=None) -> str:
 
 def build_w8a8_serving_path(model, loaders, args):
     """The forecast CLIs' w8a8 prologue: calibrate on ``--calib_batches``
-    batches of ``--calib_split`` (on the model's device) and return
+    batches of ``--calib_split`` (on the model's device; one process's
+    batches, on every rank under a launcher) and return
     ``(the w8a8 copy of model, calib)`` (``models/quantized_resnet.py``)."""
     from visuelle2_tpu_torch.models import quantized_resnet as qr
     from visuelle2_tpu_torch.train.loop import to_device
@@ -216,7 +213,8 @@ def build_w8a8_serving_path(model, loaders, args):
     split = getattr(args, "calib_split", "test") or "test"  # loaded by calib_splits
     n = max(1, int(getattr(args, "calib_batches", 2)))
     device = next(model.parameters()).device
-    batches = [to_device(b, device) for b, _ in zip(loaders[split], range(n))]
+    batches = [to_device(b, device) for b, _ in zip(one_process_loader(loaders[split]),
+                                                    range(n))]
     qmodel, calib = qr.build_serving_path(model, batches)
     print(f"[w8a8] int8 backbone: {len(calib)} activation scales calibrated on "
           f"{len(batches)} {split} batches")
@@ -228,15 +226,15 @@ def score_and_export(args, model, loaders, norm_scalar: float, provenance: dict,
     """What both forecast CLIs do once the model is restored: resolve
     ``--quantize``, calibrate the w8a8 copy when it says so, score the test
     split with the model it picked (data parallel over ``mesh``), then
-    ``--export``."""
-    refuse_single_process_options(args, mesh)
+    ``--export`` (rank 0, from one process's first batch)."""
     quantize = resolve_quantize(args, loaders["test"])
     scored, calib = model, None
     if quantize == "w8a8":
         scored, calib = build_w8a8_serving_path(model, loaders, args)
     result = score_test_split(args, scored, loaders["test"], norm_scalar, mesh=mesh)
-    if getattr(args, "export", ""):
-        example = {k: v.numpy() for k, v in next(iter(loaders["test"])).items()}
+    if getattr(args, "export", "") and is_main_process():
+        first = next(iter(one_process_loader(loaders["test"])))
+        example = {k: v.numpy() for k, v in first.items()}
         size = export_forecaster(model, example, args.export, quantize=quantize,
                                  extra_header=provenance, calib=calib)
         print(f"Exported serving artifact: {args.export} ({size / 1e6:.1f} MB)")
@@ -296,11 +294,13 @@ def build_loaders(args, *, demand: bool, output_len: int, splits=("train", "test
 
 def score_test_split(args, model, loader, norm_scalar: float, mesh=None):
     """What both forecast CLIs do once the model and loader exist:
-    ``--dump_attention``, ``score_split`` (``--one_pass``; data parallel over
-    ``mesh``), ``--metrics_out`` (the JAX CLIs' JSON keys) and the printed
-    summary; rank 0 alone writes and prints."""
-    if args.dump_attention:
-        keys = dump_attention(model, next(iter(loader)), args.dump_attention)
+    ``--dump_attention`` (rank 0, on one process's first batch),
+    ``score_split`` (``--one_pass``; data parallel over ``mesh``),
+    ``--metrics_out`` (the JAX CLIs' JSON keys) and the printed summary;
+    rank 0 alone writes and prints."""
+    if args.dump_attention and is_main_process():
+        keys = dump_attention(model, next(iter(one_process_loader(loader))),
+                              args.dump_attention)
         print(f"Attention weights -> {args.dump_attention}: "
               f"{keys if keys else 'model returns no attention aux'}")
     result = score_split(model, loader, mesh=mesh, norm_scalar=norm_scalar,

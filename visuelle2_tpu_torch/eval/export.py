@@ -70,6 +70,7 @@ from visuelle2_tpu_torch.models.pretrained import (
 )
 from visuelle2_tpu_torch.models.quantized_resnet import backbone_paths, quantized_model
 from visuelle2_tpu_torch.models.registry import build
+from visuelle2_tpu_torch.parallel.distributed import is_main_process
 
 MAGIC = b"V2TORCHART01"
 JAX_MAGIC = b"V2TPUEXPORT1"  # the JAX package's StableHLO artifact
@@ -196,7 +197,10 @@ def export_forecaster(model: nn.Module, example_batch: Dict[str, np.ndarray], pa
     w8a8) and the batch contract of ``example_batch`` to ``path``; returns
     the file's size in bytes.  ``extra_header`` goes into the header as
     ``provenance``: informational for clients, never read by
-    ``load_forecaster``.  ``calib``: the w8a8 calibration."""
+    ``load_forecaster``.  ``calib``: the w8a8 calibration.  A model sharded
+    over a ``model`` axis (``parallel/sharding.py``) is gathered, so every
+    rank of its model group calls this.  Over a process group rank 0 writes
+    the file and the other ranks return 0."""
     if quantize not in (None, "", "none", "int8", "w8a8"):
         raise ValueError(f"unsupported quantize mode {quantize!r}")
     if quantize == "w8a8" and not calib:
@@ -206,7 +210,9 @@ def export_forecaster(model: nn.Module, example_batch: Dict[str, np.ndarray], pa
     if spec is None:
         raise ValueError("export_forecaster needs a model built by models.build "
                          "(its build_spec rebuilds it at load)")
-    flat = flatten_variables(to_jax_variables(model))
+    flat = flatten_variables(to_jax_variables(model))  # gathers a sharded model
+    if not is_main_process():
+        return 0  # rank 0 writes
     scales = {}
     if quantize == "int8":
         flat, scales = quantize_int8(flat, quantize_min_size)

@@ -15,13 +15,18 @@ batch at a time; ``None`` picks one-pass when the split's bytes fit
 scores ``models/quantized_resnet.py::quantized_model``'s copy, so the
 metrics, GFLOPs and forecasts/s are that path's.
 
-``mesh`` (``parallel/mesh.py``): data parallel, each rank scores its row
-block of every batch (a loader with its ``rank`` / ``world``) inside
-``parallel.collectives.data_parallel`` (a dedup batch's slots are spread
-over the ranks), the sums are all-reduced before the host reads them, and
-forecasts/s counts the global rows (per chip: divided by the ranks), as the
-JAX ``score_split`` does over its mesh.  Without one it is
-``make_mesh()``: one rank with no process group.
+``mesh`` (``parallel/mesh.py``): each data index scores its row block of
+every batch (a loader with its ``rank`` / ``world`` from
+``batch_rank_world``) inside ``parallel.collectives.data_parallel`` (a
+dedup batch's slots are spread over the data ranks), the sums are
+all-reduced over the data group before the host reads them (with a
+``model`` axis, model rank 0's, ``train/loop.py::sum_eval_sums``), and
+forecasts/s counts the global rows (per chip: divided by every rank of the
+mesh), as the JAX ``score_split`` does over its mesh.  A model sharded
+over the ``model`` axis (``parallel/sharding.py``) gathers each sharded
+weight once for the pass (``sharding.gathered``), so every rank of the mesh
+calls ``score_split``.  Without one it is ``make_mesh()``: one rank with no
+process group.
 """
 
 from __future__ import annotations
@@ -39,7 +44,14 @@ from visuelle2_tpu_torch.eval.profiler import batch_flops, peak_memory_bytes
 from visuelle2_tpu_torch.ops.metrics import eval_metrics, finalize_metrics
 from visuelle2_tpu_torch.parallel import collectives
 from visuelle2_tpu_torch.parallel import mesh as mesh_lib
-from visuelle2_tpu_torch.train.loop import SUM_KEYS, expand_mask, target_and_pred, to_device
+from visuelle2_tpu_torch.parallel import sharding
+from visuelle2_tpu_torch.train.loop import (
+    SUM_KEYS,
+    expand_mask,
+    sum_eval_sums,
+    target_and_pred,
+    to_device,
+)
 # One-pass keeps the whole split on the device beside the weights, the
 # activations and the allocator's workspace: it may take this share of the
 # device's memory (of the host's on the CPU).
@@ -143,7 +155,7 @@ def score_split(model, loader, *, mesh=None, norm_scalar: float = 53.0,
     docstring)."""
     device = _model_device(model)
     mesh = mesh if mesh is not None else mesh_lib.make_mesh(device_type=device.type)
-    with collectives.data_parallel(mesh):
+    with torch.inference_mode(), sharding.gathered(model), collectives.data_parallel(mesh):
         return _score(model, loader, mesh, device, norm_scalar, measure_throughput,
                       timing_iters, one_pass)
 
@@ -151,6 +163,7 @@ def score_split(model, loader, *, mesh=None, norm_scalar: float = 53.0,
 def _score(model, loader, mesh, device, norm_scalar, measure_throughput, timing_iters,
            one_pass) -> ForecastResult:
     world = mesh_lib.batch_rank_world(mesh)[1]
+    chips = world * mesh_lib.model_size(mesh)
     first = next(iter(loader), None)
     if first is None:
         raise ValueError("score_split got a loader with zero batches — the split is empty")
@@ -195,9 +208,7 @@ def _score(model, loader, mesh, device, norm_scalar, measure_throughput, timing_
                     batches.append(batch)
                 sums = step(sums, batch)
         if mesh_lib.is_distributed(mesh):
-            import torch.distributed as dist
-
-            dist.all_reduce(sums, group=mesh_lib.batch_group(mesh))
+            sum_eval_sums(sums, mesh)
         totals = dict(zip(SUM_KEYS, sums.tolist()))  # the one host sync
         split_s = time.perf_counter() - t0
         fin = finalize_metrics(totals)
@@ -222,6 +233,6 @@ def _score(model, loader, mesh, device, norm_scalar, measure_throughput, timing_
 
     return ForecastResult(
         wape=fin["wape"], mae=fin["mae"], num_forecasts=int(totals["rows"]),
-        forecasts_per_sec=fps, forecasts_per_sec_per_chip=fps and fps / world,
+        forecasts_per_sec=fps, forecasts_per_sec_per_chip=fps and fps / chips,
         gflops_per_sample=gflops, peak_hbm_bytes=peak, split_seconds=split_s,
         forecasts_per_sec_windows=windows, forwards=forwards, one_pass=bool(one_pass))

@@ -1,9 +1,10 @@
-"""Data parallelism over ``torch.distributed``, counterpart of
+"""Data and tensor parallelism over ``torch.distributed``, counterpart of
 ``visuelle2_tpu/parallel/``: meshes and placements (``mesh.py``),
-initialization and hybrid meshes (``distributed.py``), the batch axis's
-collectives (``collectives.py``) and the two-process demo
-(``demo_multihost.py``).  Tensor parallelism (the JAX ``sharding.py``:
-``infer_param_sharding``, ``shard_variables``) is ROADMAP Queue 1 item 12b."""
+initialization and hybrid meshes (``distributed.py``), the collectives of
+the batch and model axes (``collectives.py``), the sharding rule of the
+``model`` axis (``sharding.py``: ``infer_param_sharding``, ``shard_module``;
+imported from there, since it reads the model bridge) and the
+multi-process demo (``demo_multihost.py``)."""
 
 from visuelle2_tpu_torch.parallel.mesh import batch_sharding, make_mesh, replicated_sharding
 

@@ -23,9 +23,18 @@ the BatchNorm collectives) on its own thread, inside the trainer's
 
 ``all_reduce_sum`` is an autograd function of the port's own: its backward
 all-reduces the gradient, since every rank's loss reads the sum
-(``torch.distributed.nn.functional.all_reduce`` is deprecated).  Every
-collective here is an ``all_reduce``, which gloo also runs over CUDA
-tensors.
+(``torch.distributed.nn.functional.all_reduce`` is deprecated).
+
+``gather_model_shards`` is the ``model`` axis's: the whole parameter from
+each model rank's column block, for the sharded parameters of
+``parallel/sharding.py``.  Its backward is this rank's block of the
+incoming gradient, with no reduction: the model ranks of one data index
+hold the same rows and compute the same whole gradient, so the
+``all_reduce_sum`` backward would give ``model`` times it.
+
+Every collective here is an ``all_reduce``, which gloo also runs over CUDA
+tensors; a gather is one ``all_reduce`` of a zero-filled buffer holding
+this rank's block (x + 0 is x, so it is exact).
 """
 
 from __future__ import annotations
@@ -131,3 +140,35 @@ def select_global_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if _ACTIVE is not None:
         x = gather_rows(x, _ACTIVE)
     return x.index_select(0, idx)
+
+
+class _GatherModelShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, dim, rank, world, group, stride):
+        import torch.distributed as dist
+
+        n = shard.shape[dim]
+        ctx.dim, ctx.start, ctx.n = dim, rank * n, n
+        shape = list(shard.shape)
+        shape[dim] = n * world
+        if stride is None:
+            full = shard.new_zeros(shape)
+        else:  # the whole tensor's own layout (a channels_last conv weight)
+            full = torch.empty_strided(shape, stride, dtype=shard.dtype,
+                                       device=shard.device).zero_()
+        full.narrow(dim, rank * n, n).copy_(shard)
+        dist.all_reduce(full, group=group)
+        return full
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.start, ctx.n).clone(), None, None, None, None, None
+
+
+def gather_model_shards(shard: torch.Tensor, dim: int, rank: int, world: int, group,
+                        stride=None) -> torch.Tensor:
+    """The whole tensor of which ``shard`` is block ``rank`` of ``world``
+    along ``dim``, from the ranks of ``group`` (the model group), laid out
+    with ``stride`` when given; its backward is this rank's block of the
+    gradient (see the module docstring)."""
+    return _GatherModelShards.apply(shard, dim, rank, world, group, stride)

@@ -1,5 +1,5 @@
-"""Multi-process data-parallel training demo, counterpart of
-``scripts/demo_multihost.py``.
+"""Multi-process training demo, counterpart of ``scripts/demo_multihost.py``:
+tensor parallel over a ``model`` axis of 2 by default, as the JAX demo.
 
 Launch one process a rank (the same global batch and seeds in each):
 
@@ -8,27 +8,31 @@ Launch one process a rank (the same global batch and seeds in each):
     python -m visuelle2_tpu_torch.parallel.demo_multihost --coordinator 127.0.0.1:9911 \\
         --num_processes 2 --process_id 1 --device cpu
 
-or one with no ``--coordinator`` (the control: no process group).  Each rank
-owns one device and feeds only its own rows of every batch
-(``distributed.global_batch``); the gradients, the loss's denominator, the BatchNorm
-statistics and the eval sums are reduced across ranks, the dropout masks
-drawn for the global batch (``train/loop.py``).  It trains gated_v4 (E=32,
-H=64, the tiny backbone at 64² unless told otherwise) ``--steps`` steps on
-one synthetic global batch and prints one JSON line with the JAX demo's
-keys, ``process``, ``processes``, ``mesh``, ``losses`` and ``eval_sums``
-(unrounded): equal across ranks, and against one process on the same
-global batch within float tolerance.
+(a ``(dcn 1, data 1, model 2)`` mesh; four ranks give ``data`` 2), or one
+with no ``--coordinator`` and ``--model_axis 1`` (the control: no process
+group; a process owns one device, so a model axis needs as many ranks).
+Each data index feeds only its own rows of every batch
+(``distributed.global_batch``; the ``model`` ranks of one data index the
+same rows); parameters whose flax trailing dim is at least 32 wide (the JAX
+demo's ``tp_min_dim``) are split over the ``model`` axis
+(``parallel/sharding.py``); the gradients, the loss's denominator, the
+BatchNorm statistics and the eval sums are reduced over the data ranks, the
+dropout masks drawn for the global batch (``train/loop.py``).  It trains
+gated_v4 (E=32, H=64, the tiny backbone at 64² unless told otherwise)
+``--steps`` steps on one synthetic global batch and prints one JSON line
+with the JAX demo's keys, ``process``, ``processes``, ``mesh``, ``losses``
+and ``eval_sums`` (unrounded): equal across ranks, and against one process
+on the same global batch within float tolerance.
 
 The JAX demo's flags, plus ``--device {cpu,cuda}`` and ``--backend
 {gloo,nccl}`` (gloo over CUDA tensors lets two ranks share one card);
-``--devices_per_process`` must be 1 (a process owns one device) and
-``--model_axis`` above 1 raises (tensor parallelism: ROADMAP Queue 1 item
-12b).  ``--no_dropout``, ``--learning_rate``, ``--image_arch``,
+``--devices_per_process`` must be 1 (a process owns one device).
+``--no_dropout``, ``--learning_rate``, ``--image_arch``,
 ``--image_size``, ``--bf16_backbone``, ``--batch_seed`` and
-``--params_out`` (an ``.npz``
-of the trained parameters, ``param/<name>``, and each step's gradient,
-summed over the ranks, ``grad<step>/<name>``; written by rank 0) serve the
-checks.
+``--params_out`` (an ``.npz`` of the trained parameters, ``param/<name>``,
+gathered into the plain model's, and each step's gradient, summed over the
+data ranks, ``grad<step>/<name>``, with ``--model_axis 1`` only; written by
+rank 0) serve the checks.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 WEIGHTS_SEED = 0  # the model's weights are drawn from this seed in every process
+TP_MIN_DIM = 32  # the JAX demo's tensor-parallel width
 
 
 def synthetic_global_batch(n, image_size=64, seed=0):
@@ -65,7 +70,7 @@ def build_parser():
     ap.add_argument("--num_processes", type=int, default=1)
     ap.add_argument("--process_id", type=int, default=0)
     ap.add_argument("--devices_per_process", type=int, default=1)
-    ap.add_argument("--model_axis", type=int, default=1)
+    ap.add_argument("--model_axis", type=int, default=2)
     ap.add_argument("--global_batch", type=int, default=16)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--device", choices=["cpu", "cuda"], default="cuda")
@@ -85,7 +90,7 @@ def build_parser():
 def run(args) -> dict:
     from visuelle2_tpu_torch.models import VocabSizes, build
     from visuelle2_tpu_torch.ops import dropout
-    from visuelle2_tpu_torch.parallel import distributed
+    from visuelle2_tpu_torch.parallel import distributed, sharding
     from visuelle2_tpu_torch.parallel.mesh import mesh_shape
     from visuelle2_tpu_torch.train.loop import TrainConfig, Trainer
 
@@ -111,21 +116,27 @@ def run(args) -> dict:
             hidden_dim=64, image_arch=args.image_arch,
             image_dtype=torch.bfloat16 if args.bf16_backbone else torch.float32)
         trainer = Trainer(model, TrainConfig(grad_clip=0.5,
-                                             learning_rate=args.learning_rate or None),
+                                             learning_rate=args.learning_rate or None,
+                                             tp_min_dim=TP_MIN_DIM),
                           mesh=mesh)
         state = trainer.init_state()
         losses, saved = [], {}
+        sharded = sharding.is_sharded(model)
         with dropout.disabled() if args.no_dropout else contextlib.nullcontext():
             for i in range(args.steps):
                 state, m = trainer.train_step(state, local)
                 losses.append(float(m["loss"]))
-                saved.update({f"grad{i}/{n}": p.grad.detach().cpu().numpy()
-                              for n, p in model.named_parameters() if p.grad is not None})
+                if not sharded:
+                    saved.update({f"grad{i}/{n}": p.grad.detach().cpu().numpy()
+                                  for n, p in model.named_parameters() if p.grad is not None})
             sums = {k: float(v) for k, v in trainer.eval_step(state, local).items()}
-        if args.params_out and trainer.is_main:
-            saved.update({f"param/{n}": p.detach().cpu().numpy()
-                          for n, p in model.named_parameters()})
-            np.savez(args.params_out, **saved)
+        if args.params_out:
+            names = {sharding.plain_name(n) for n, _ in model.named_parameters()}
+            params = {n: t for n, t in sharding.plain_state_dict(model).items() if n in names}
+            if trainer.is_main:
+                saved.update({f"param/{n}": t.detach().cpu().numpy()
+                              for n, t in params.items()})
+                np.savez(args.params_out, **saved)
         return {"process": args.process_id, "processes": args.num_processes,
                 "mesh": mesh_shape(mesh), "losses": losses, "eval_sums": sums}
     finally:

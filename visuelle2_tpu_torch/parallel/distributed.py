@@ -6,11 +6,12 @@ device at once.  Topology model, as in the JAX package:
 
 * ``dcn``   — the node axis; the gradient's all-reduce crosses it.
 * ``data``  — the ranks within a node (batch parallelism).
-* ``model`` — tensor parallelism, innermost; not ported yet
-  (``parallel/mesh.py``: ROADMAP Queue 1 item 12b).
+* ``model`` — tensor parallelism, innermost: the ranks of one data index
+  share its rows, each holding a column block of the sharded parameters
+  (``parallel/sharding.py``), so the gathers stay within a node.
 
 Batches are fed rank-locally: each rank assembles only its own rows of the
-global batch (``data/loader.py``'s ``rank``/``world``, or ``global_batch`` /
+global batch (the ``model`` ranks of one data index the same rows) (``data/loader.py``'s ``rank``/``world``, or ``global_batch`` /
 ``shard_batch`` over a host batch), so no process holds the whole batch,
 and the trainer keeps every batch-wide quantity global
 (``parallel/collectives.py``, ``train/loop.py``).
@@ -40,6 +41,14 @@ _LAUNCHER_KEYS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 def current_device() -> Optional[torch.device]:
     """The device ``initialize`` bound this rank to (None before it)."""
     return _DEVICE
+
+
+def is_main_process() -> bool:
+    """Rank 0 of the process group, or the only process: the one that
+    writes files and prints result lines."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def launched_world_size() -> int:
@@ -119,7 +128,10 @@ def shutdown() -> None:
     global _DEVICE
     import torch.distributed as dist
 
+    from visuelle2_tpu_torch.parallel.mesh import forget_groups
+
     if dist.is_initialized():
+        forget_groups()
         dist.destroy_process_group()
     _DEVICE = None
 
@@ -140,8 +152,8 @@ def make_hybrid_mesh(model: int = 1, nodes: Optional[int] = None):
 
     if not dist.is_initialized():
         if model != 1 or nodes not in (None, 1):
-            mesh_lib.refuse_tensor_parallel(model)
-            raise ValueError(f"nodes={nodes} but no process group is initialized")
+            raise ValueError(f"model={model}, nodes={nodes}, but no process group is "
+                             f"initialized: one process holds one device")
         return mesh_lib.LocalMesh(("dcn",) + mesh_lib.AXES)
     world, rank = dist.get_world_size(), dist.get_rank()
     if nodes is None:
@@ -151,9 +163,8 @@ def make_hybrid_mesh(model: int = 1, nodes: Optional[int] = None):
                              f"LOCAL_WORLD_SIZE={local_world}")
         nodes = world // local_world
     # Real raises, not asserts (python -O strips them).
-    if nodes <= 0 or world % nodes or (world // nodes) % model:
+    if model < 1 or nodes <= 0 or world % nodes or (world // nodes) % model:
         raise ValueError(f"{world} ranks / {nodes} nodes not divisible by model={model}")
-    mesh_lib.refuse_tensor_parallel(model)
     per = world // nodes
     dev = _DEVICE or torch.device("cpu")
     layout = torch.zeros(world, dtype=torch.float64, device=dev)
@@ -165,8 +176,10 @@ def make_hybrid_mesh(model: int = 1, nodes: Optional[int] = None):
                          f"of {per}; the dcn axis would cross node boundaries")
     from torch.distributed.device_mesh import DeviceMesh
 
-    return DeviceMesh(dev.type, torch.arange(world).reshape(nodes, per // model, model),
+    mesh = DeviceMesh(dev.type, torch.arange(world).reshape(nodes, per // model, model),
                       mesh_dim_names=("dcn",) + mesh_lib.AXES)
+    mesh_lib.make_groups(mesh)
+    return mesh
 
 
 def global_batch(batch, mesh):

@@ -9,8 +9,11 @@ already holds (``fit_skip``, non-zero after a mid-epoch save on SIGTERM or
 autosave).  The top-k retention may delete every epoch after the best one;
 the ``last`` slot is what a resume reads.
 
-A slot holds ``state.pt``: the model's state dict (parameters and BatchNorm
-statistics), the optimizer's state dict and the global step, plus
+A slot holds ``state.pt``: the plain model's state dict (parameters and
+BatchNorm statistics), the optimizer's state dict in the whole parameters'
+layout and the global step (``plain_payload``: a model sharded over a
+``model`` axis is gathered, and a restore cuts each rank's block back out,
+so a checkpoint moves between mesh shapes), plus
 ``fit_epoch`` / ``fit_skip`` in ``last``; an epoch slot also holds its
 metrics (``metrics.json``).  Each file is written under a temporary name and
 renamed into place, the state last, so a save cut by a signal or a crash
@@ -81,8 +84,17 @@ def _atomic_save(payload, slot: str, metrics: Optional[Dict] = None) -> None:
     _replace_file(os.path.join(slot, STATE_FILE), lambda tmp: torch.save(payload, tmp))
 
 
-def _payload(state) -> dict:
-    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+def plain_payload(state) -> dict:
+    """What a slot holds of ``state``: the plain model's state dict, the
+    optimizer's in the whole parameters' layout and the step.  Under tensor
+    parallelism the sharded tensors are gathered, so every rank of the
+    model group calls this for each save (``train/loop.py``)."""
+    from visuelle2_tpu_torch.parallel import sharding
+
+    optimizer = state.optimizer
+    return {"model": sharding.plain_state_dict(state.model),
+            "optimizer": (optimizer.plain_state_dict() if hasattr(optimizer, "plain_state_dict")
+                          else optimizer.state_dict()),
             "step": int(state.step)}
 
 
@@ -138,16 +150,17 @@ class CheckpointManager:
         """The epoch's slot (kept while among the top k) and the ``last``
         slot pointing at ``epoch + 1``."""
         self._writable()
-        _atomic_save(_payload(state), self._slot(epoch),
+        payload = plain_payload(state)
+        _atomic_save(payload, self._slot(epoch),
                      {k: float(v) for k, v in metrics.items() if k != "epoch"})
         ranked = sorted(self._epochs(), key=self._rank_key)
         for stale in ranked[self.save_top_k:]:
             shutil.rmtree(self._slot(stale), ignore_errors=True)
         if self.save_last:
-            self._save_last(state, fit_epoch=epoch + 1)
+            self._save_last(payload, fit_epoch=epoch + 1)
 
-    def _save_last(self, state, fit_epoch: int, fit_skip: int = 0):
-        _atomic_save(dict(_payload(state), fit_epoch=int(fit_epoch), fit_skip=int(fit_skip)),
+    def _save_last(self, payload, fit_epoch: int, fit_skip: int = 0):
+        _atomic_save(dict(payload, fit_epoch=int(fit_epoch), fit_skip=int(fit_skip)),
                      self._last_slot)
 
     def save_preempted(self, epoch: int, state, steps_into_epoch: int = 0):
@@ -157,7 +170,7 @@ class CheckpointManager:
         if not self.save_last:
             raise ValueError("save_preempted requires save_last=True")
         self._writable()
-        self._save_last(state, fit_epoch=epoch, fit_skip=steps_into_epoch)
+        self._save_last(plain_payload(state), fit_epoch=epoch, fit_skip=steps_into_epoch)
 
     def wait_until_finished(self):
         """Saves are synchronous: nothing to wait for."""
@@ -197,8 +210,14 @@ class CheckpointManager:
 
     @staticmethod
     def _apply(state, payload):
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        from visuelle2_tpu_torch.parallel import sharding
+
+        sharding.load_plain_state_dict(state.model, payload["model"])
+        optimizer = state.optimizer
+        if hasattr(optimizer, "load_plain_state_dict"):
+            optimizer.load_plain_state_dict(payload["optimizer"])
+        else:
+            optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         return state
 
@@ -220,5 +239,7 @@ class CheckpointManager:
         step = self.best_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"{self.directory}: no checkpoints")
-        model.load_state_dict(self._load(self._slot(step))["model"])
+        from visuelle2_tpu_torch.parallel import sharding
+
+        sharding.load_plain_state_dict(model, self._load(self._slot(step))["model"])
         return model

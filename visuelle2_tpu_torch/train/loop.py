@@ -24,34 +24,49 @@ off everywhere by calling the steps inside ``ops.dropout.disabled()``.
 ``Trainer(model, config, mesh)`` takes the JAX signature.  With no mesh it
 is ``parallel.mesh.make_mesh()``: the stand-in one-rank mesh without a
 process group, so the steps above run as written.  Over a process group
-(one rank a device, ``parallel/distributed.py::initialize``) it trains data
-parallel, each rank on its row block of every global batch, and gives the
-single-device step's numbers on the global batch whatever the world size:
+(one rank a device, ``parallel/distributed.py::initialize``) it trains over
+the mesh's ``(data, model)`` (or ``(dcn, data, model)``) axes, each data
+index on its row block of every global batch, and gives the
+single-device step's numbers on the global batch whatever the mesh:
 
-* ``init_state`` broadcasts the parameters and buffers from rank 0;
+* ``init_state`` broadcasts the parameters and buffers from rank 0; with a
+  ``model`` axis it then keeps this rank's block of every parameter the
+  JAX rule shards at ``config.tp_min_dim`` (``parallel/sharding.py``), and
+  the optimizer, built over the parameters in the plain model's order,
+  shards its state the same way (``train/optim.py``);
 * the masked MSE is this rank's numerator over the global denominator
-  (an all-reduce outside autograd), so the ranks' losses sum to the global
-  loss, wherever the ranks hold different counts of real rows;
+  (an all-reduce over the data group, outside autograd), so the data
+  ranks' losses sum to the global loss, wherever they hold different
+  counts of real rows;
 * BatchNorm statistics, dropout masks and the dedup gather are global
-  inside the step (``parallel/collectives.py``);
-* after ``backward`` one flat all-reduce sums the gradients, the loss and
-  a stop flag across ranks: one collective a step, over exactly the
-  gradients that exist, with no hook in autograd (``DistributedDataParallel``
-  would average, not sum, and re-send BatchNorm buffers at every forward);
-  the Adafactor update and its global-norm clip then run alike on every
-  rank on the same summed gradient;
-* ``evaluate`` and ``eval_step`` all-reduce the float64 partial sums;
+  inside the step (``parallel/collectives.py``), over the data group;
+* after ``backward`` one flat all-reduce over the data group sums the
+  gradients (a sharded parameter's: its block), the loss and the stop
+  flags: one collective a step, over exactly the gradients that exist,
+  with no hook in autograd (``DistributedDataParallel`` would average, not
+  sum, and re-send BatchNorm buffers at every forward); the Adafactor
+  update and its global-norm clip then run alike on every rank;
+* with a ``model`` axis, one more all-reduce over the model group makes
+  the replicated parameters' gradients, the BatchNorm buffers and the loss
+  model rank 0's (the others add zeros), so a nondeterministic kernel on
+  the card cannot move the model ranks' replicas apart, and sums the stop
+  flags, which so reach every rank;
+* ``evaluate`` and ``eval_step`` all-reduce the float64 partial sums over
+  the data group;
 * ``fit``: rank 0 alone logs, writes checkpoints and traces; a SIGTERM on
   any rank sets its stop flag, which reaches every rank through the next
-  step's all-reduce; each rank reads the agreed flag ``STOP_LAG`` steps
+  step's all-reduces; each rank reads the agreed flag ``STOP_LAG`` steps
   later from a copy to pinned host memory, or at the epoch's end, so every
   rank stops at the same step boundary and no step waits on the device.
+  Rank 0's autosave deadline travels in the same flags and every rank
+  saves at the boundary that reads it: with a ``model`` axis a checkpoint
+  is gathered on every rank (rank 0 writes the plain state,
+  ``train/checkpoint.py``).
 
 At one rank every collective is the identity and the steps give the plain
 ``Trainer``'s bits.  The JAX ``TrainConfig.data_parallel`` is never read by
 the JAX package, so the port has no such option (data parallelism follows
-the mesh); ``tp_min_dim`` comes with tensor parallelism (ROADMAP Queue 1
-item 12b; ``make_mesh(model > 1)`` raises).
+the mesh).
 """
 
 from __future__ import annotations
@@ -70,6 +85,7 @@ from torch import nn
 from visuelle2_tpu_torch.ops.metrics import eval_metrics, finalize_metrics
 from visuelle2_tpu_torch.parallel import collectives
 from visuelle2_tpu_torch.parallel import mesh as mesh_lib
+from visuelle2_tpu_torch.parallel import sharding
 from visuelle2_tpu_torch.train import optim as optim_lib
 
 SUM_KEYS = ("abs_err", "abs_gt", "count", "rows")  # eval_metrics' partial sums
@@ -121,6 +137,22 @@ def mse_loss(target, pred, row_mask, group=None):
     return torch.sum(err * row_mask[:, None]) / torch.clamp_min(denom, 1.0)
 
 
+def sum_eval_sums(sums: torch.Tensor, mesh) -> torch.Tensor:
+    """In place: the float64 partial sums summed over ``mesh``'s data group,
+    then, with a ``model`` axis, model rank 0's taken by every model rank
+    (the others add zeros to one all-reduce): every rank then reads the same
+    metrics, whatever a nondeterministic kernel did to its own forward."""
+    import torch.distributed as dist
+
+    dist.all_reduce(sums, group=mesh_lib.batch_group(mesh))
+    group = mesh_lib.model_group(mesh)
+    if group is not None:
+        if mesh_lib.model_rank_world(mesh)[0] != 0:
+            sums.zero_()
+        dist.all_reduce(sums, group=group)
+    return sums
+
+
 def to_device(batch, device) -> Dict[str, torch.Tensor]:
     # Asynchronous from pinned host memory (the loader pins for a CUDA target).
     return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
@@ -155,6 +187,9 @@ class TrainConfig:
     # ``early_stop_min_delta`` (0 = off).
     early_stop_patience: int = 0
     early_stop_min_delta: float = 0.0
+    # Tensor parallelism: parameters whose flax trailing dim is at least
+    # this wide (and divisible by the model axis) shard over ``model``.
+    tp_min_dim: int = 64
 
 
 @dataclasses.dataclass
@@ -196,19 +231,26 @@ class _StopAgreement:
     a step's all-reduce, read ``STOP_LAG`` steps later (every pending one
     with ``lag=0``, at an epoch's end) from a copy to pinned host memory, so
     every rank reads the same flags at the same boundaries and the host
-    waits only on a step that is long done."""
+    waits only on a step that is long done.  The second flag is rank 0's
+    autosave request, counted in ``autosaves``."""
 
     def __init__(self, trainer):
         self.trainer = trainer
         self.pending = collections.deque()
         self.agreed = False
+        self.autosaves = 0
+
+    def take_autosave(self) -> bool:
+        """Whether an agreed autosave request was read since the last call."""
+        due, self.autosaves = self.autosaves > 0, 0
+        return due
 
     def after_step(self):
         if not self.trainer.distributed:
             return
         flag = self.trainer._stop_flag
         if flag.device.type == "cuda":
-            host = torch.empty(1, dtype=flag.dtype, pin_memory=True)
+            host = torch.empty(flag.shape, dtype=flag.dtype, pin_memory=True)
             host.copy_(flag, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
@@ -224,7 +266,21 @@ class _StopAgreement:
             if event is not None:
                 event.synchronize()
             self.agreed = self.agreed or float(host[0]) > 0.0
+            self.autosaves += int(float(host[1]) > 0.0)
         return self.agreed
+
+
+class _GatherOnly:
+    """A rank other than 0 under tensor parallelism: its side of each of
+    rank 0's saves, the gathers of the plain state, with nothing written."""
+
+    def save(self, epoch, state, metrics):
+        from visuelle2_tpu_torch.train.checkpoint import plain_payload
+
+        plain_payload(state)
+
+    def save_preempted(self, epoch, state, steps_into_epoch: int = 0):
+        self.save(epoch, state, None)
 
 
 class Trainer:
@@ -240,38 +296,65 @@ class Trainer:
         self.rank, self.world = mesh_lib.batch_rank_world(self.mesh)
         self.distributed = mesh_lib.is_distributed(self.mesh)
         self._group = mesh_lib.batch_group(self.mesh) if self.distributed else None
-        self.is_main = self.rank == 0
+        self._model_group = mesh_lib.model_group(self.mesh) if self.distributed else None
+        self.model_rank = mesh_lib.model_rank_world(self.mesh)[0]
+        if self.distributed:
+            import torch.distributed as dist
+
+            self.is_main = dist.get_rank() == 0
+        else:
+            self.is_main = True
         self.history = []
         self._watch = None  # fit's PreemptionWatch, read into the stop flag
-        self._stop_flag = None  # the last step's all-reduced stop flag (device)
+        # The last step's all-reduced (stop, autosave) flags (device).
+        self._stop_flag = None
+        self._autosave_request = False  # rank 0's, sent with the next step
+
+    @property
+    def tensor_parallel(self) -> bool:
+        return self._model_group is not None
 
     # ------------------------------------------------------------------ init
     def init_state(self) -> TrainState:
         """The state of a fresh run from the model's current weights: the
         backbone freeze split applied and a new optimizer.  (The JAX
         ``init_state`` draws the weights here; the port's ``build`` draws
-        them from its generator.)  Data parallel: rank 0's parameters and
-        buffers, broadcast."""
+        them from its generator.)  Over a process group: rank 0's
+        parameters and buffers, broadcast; then, with a ``model`` axis, this
+        rank's blocks of the sharded parameters (the model is sharded once;
+        a second ``init_state`` broadcasts each block over its data group)."""
+        model = self.model
         if self.distributed:
-            self._broadcast_from_first_rank(
-                list(self.model.parameters()) + list(self.model.buffers()))
-        optimizer = optim_lib.make_optimizer(self.model, self.config.grad_clip,
-                                             self.config.learning_rate)
-        return TrainState(self.model, optimizer, 0)
+            if sharding.is_sharded(model):
+                self._broadcast_from_first_rank(
+                    list(model.parameters()) + list(model.buffers()), self._group)
+            else:
+                import torch.distributed as dist
 
-    def _broadcast_from_first_rank(self, tensors):
+                self._broadcast_from_first_rank(
+                    list(model.parameters()) + list(model.buffers()), dist.group.WORLD)
+        if self.tensor_parallel and not sharding.is_sharded(model):
+            sharding.shard_module(model, self.mesh, self.config.tp_min_dim)
+        # Over the parameters in the plain model's order, so that its
+        # state_dict indexes them as an unsharded optimizer's does.
+        optimizer = optim_lib.make_optimizer(
+            model, self.config.grad_clip, self.config.learning_rate,
+            params=sharding.plain_parameter_order(model),
+            shards=sharding.parameter_shards(model))
+        return TrainState(model, optimizer, 0)
+
+    def _broadcast_from_first_rank(self, tensors, group):
         import torch.distributed as dist
 
         by_dtype = collections.defaultdict(list)
         for t in tensors:
             by_dtype[t.dtype].append(t)
         with torch.no_grad():
-            for group in by_dtype.values():
-                flat = torch.cat([t.reshape(-1) for t in group])
-                dist.broadcast(flat, src=dist.get_global_rank(self._group, 0),
-                               group=self._group)
-                torch._foreach_copy_(group, [v.view_as(t) for v, t in zip(
-                    flat.split([t.numel() for t in group]), group)])
+            for group_tensors in by_dtype.values():
+                flat = torch.cat([t.reshape(-1) for t in group_tensors])
+                dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
+                torch._foreach_copy_(group_tensors, [v.view_as(t) for v, t in zip(
+                    flat.split([t.numel() for t in group_tensors]), group_tensors)])
 
     # ----------------------------------------------------------------- steps
     def _parallel(self):
@@ -288,22 +371,52 @@ class Trainer:
         return mse_loss(target, pred, expand_mask(batch, target), group=self._group)
 
     def _reduce_gradients(self, loss):
-        """Data parallel: one all-reduce sums the gradients, the loss and
-        this rank's stop flag over the ranks; returns the global loss."""
+        """Over a process group: one all-reduce over the data group sums
+        the gradients, the loss and this rank's (stop, autosave) flags; with
+        a ``model`` axis ``_sync_model_ranks`` follows.  Returns the global
+        loss."""
         import torch.distributed as dist
 
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         if any(g.dtype != loss.dtype for g in grads):
             raise TypeError("data parallel training needs float32 gradients (the masters)")
         requested = self._watch is not None and self._watch.requested
+        autosave, self._autosave_request = self._autosave_request, False
         flat = torch.cat([g.reshape(-1) for g in grads] + [
             loss.detach().reshape(1),
-            torch.full((1,), float(requested), dtype=loss.dtype, device=loss.device)])
+            torch.full((1,), float(requested), dtype=loss.dtype, device=loss.device),
+            torch.full((1,), float(autosave), dtype=loss.dtype, device=loss.device)])
         dist.all_reduce(flat, group=self._group)
         torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(
-            flat[:-2].split([g.numel() for g in grads]), grads)])
-        self._stop_flag = flat[-1:]
-        return flat[-2]
+            flat[:-3].split([g.numel() for g in grads]), grads)])
+        if self.tensor_parallel:
+            return self._sync_model_ranks(flat[-3], flat[-2:])
+        self._stop_flag = flat[-2:]
+        return flat[-3]
+
+    def _sync_model_ranks(self, loss, flags):
+        """Tensor parallel: one all-reduce over the model group, to which
+        model rank 0 adds the replicated parameters' gradients, the float
+        buffers (BatchNorm statistics) and the loss, and the others zeros,
+        so every model rank takes rank 0's bits; the flags are summed, so
+        each reaches every rank.  Returns the loss."""
+        import torch.distributed as dist
+
+        shards = sharding.parameter_shards(self.model)
+        grads = [p.grad for p in self.model.parameters()
+                 if p.grad is not None and p not in shards]
+        buffers = [b for b in self.model.buffers() if b.dtype == loss.dtype]
+        values = [t.reshape(-1) for t in grads + buffers] + [loss.reshape(1)]
+        flat = torch.cat(values)
+        if self.model_rank != 0:
+            flat.zero_()
+        flat = torch.cat([flat, flags])
+        dist.all_reduce(flat, group=self._model_group)
+        with torch.no_grad():
+            torch._foreach_copy_(grads + buffers, [v.view_as(t) for v, t in zip(
+                flat[:-3].split([t.numel() for t in grads + buffers]), grads + buffers)])
+        self._stop_flag = flat[-2:]
+        return flat[-3]
 
     def train_step(self, state: TrainState, batch):
         """One update from ``batch``; returns ``(state, {"loss": tensor})``.
@@ -386,11 +499,11 @@ class Trainer:
             return torch.stack([part[k] for k in SUM_KEYS]).double()
 
     def _sum_over_ranks(self, sums: torch.Tensor) -> torch.Tensor:
+        """The data group's sum of the partial sums; with a ``model`` axis,
+        model rank 0's on every rank (``sum_eval_sums``)."""
         if self.distributed:
-            import torch.distributed as dist
-
             with torch.inference_mode():
-                dist.all_reduce(sums, group=self._group)
+                sum_eval_sums(sums, self.mesh)
         return sums
 
     def eval_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
@@ -441,8 +554,18 @@ class Trainer:
         if self.distributed:
             import torch.distributed as dist
 
-            dist.barrier(group=self._group)  # rank 0's saves are on disk for every rank
+            dist.barrier()  # rank 0's saves are on disk for every rank
         return state
+
+    def _agree_on_saver(self, saver, can_save_last):
+        """Rank 0's (has a checkpointer, it saves the ``last`` slot), on
+        every rank: one all-reduce at the start of ``fit``."""
+        import torch.distributed as dist
+
+        mine = [float(saver is not None), float(can_save_last)] if self.is_main else [0.0, 0.0]
+        flags = torch.tensor(mine, dtype=torch.float32, device=self.device)
+        dist.all_reduce(flags)
+        return bool(flags[0] > 0), bool(flags[1] > 0)
 
     def _log(self, metrics, log_fn):
         self.history.append(metrics)
@@ -456,6 +579,12 @@ class Trainer:
         # rank 0 alone saves.
         saver = checkpointer if self.is_main else None
         can_save_last = saver is not None and hasattr(saver, "save_preempted")
+        if self.tensor_parallel:
+            # A save gathers the state on every rank: the others take part
+            # in each of rank 0's.
+            saves, can_save_last = self._agree_on_saver(saver, can_save_last)
+            if saves and not self.is_main:
+                saver = _GatherOnly()
         autosave_s = self.config.autosave_minutes * 60.0
         next_autosave = time.time() + autosave_s
         best_monitor, stale_epochs = np.inf, 0
@@ -487,10 +616,19 @@ class Trainer:
                 stop.after_step()
                 losses.append(m["loss"])
                 done = skip + len(losses)
-                if autosave_s and can_save_last and not watch.requested \
-                        and time.time() >= next_autosave:
+                if not self.distributed:
+                    if autosave_s and can_save_last and not watch.requested \
+                            and time.time() >= next_autosave:
+                        saver.save_preempted(epoch, state, steps_into_epoch=done)
+                        next_autosave = time.time() + autosave_s
+                # Over a process group rank 0's deadline travels in the
+                # step's flags; every rank saves at the boundary that reads it.
+                elif not stop.requested() and stop.take_autosave() and can_save_last:
                     saver.save_preempted(epoch, state, steps_into_epoch=done)
                     next_autosave = time.time() + autosave_s
+                elif autosave_s and can_save_last and self.is_main \
+                        and not watch.requested and time.time() >= next_autosave:
+                    self._autosave_request, next_autosave = True, np.inf
                 if stop.requested():
                     break
             if stop.requested(lag=0):
