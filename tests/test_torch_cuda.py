@@ -473,6 +473,45 @@ def test_cross_attn_rnn_on_card_matches_cpu(name, launches):
     torch.testing.assert_close(on_card, on_cpu, atol=1e-4, rtol=0)
 
 
+def test_port_spans_leave_the_device_trace_as_it_is():
+    """The port's spans (``utils/tracing.py``) are host records alone: a
+    served Demand call (tiny dims) profiled with recording on and with it
+    off holds the same device events, by name and count, and no host event
+    named after a span."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from visuelle2_tpu_torch.eval.export import make_forecaster
+    from visuelle2_tpu_torch.utils import tracing
+
+    model = build("cross_attn_rnn_demand", image_arch="tiny", vocab=VocabSizes(5, 6, 5, 126),
+                  attention_dim=32, embedding_dim=32, hidden_dim=48)
+    batch = _batch(6)
+    fn, _ = make_forecaster(model, batch)
+    fn(batch)  # warm
+
+    def profiled(on):
+        tracing.enable(on)
+        tracing.reset()
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn(batch)
+                torch.cuda.synchronize()
+        finally:
+            tracing.enable(True)
+        events = list(prof.profiler.kineto_results.events())
+        device = collections.Counter(e.name() for e in events
+                                     if e.device_type() != torch.autograd.DeviceType.CPU)
+        return device, {e.name() for e in events}, {r[0] for r in tracing.records()}
+
+    on, host_on, spans = profiled(True)
+    off, _, none = profiled(False)
+    assert {"forecast.upload", "forecast.forward", "decode.step"} <= spans and not none
+    assert on and on == off
+    assert not host_on & spans
+
+
 @pytest.mark.parametrize("weight_on", ["inputs", "projected"])
 @pytest.mark.parametrize("shape", [(128, 100, 512, 512, 512), (128, 4, 512, 512, 512),
                                    (37, 13, 48, 40, 24)])

@@ -31,6 +31,7 @@ import torch
 
 from visuelle2_tpu_torch.data.images import ImageStore
 from visuelle2_tpu_torch.data.pipeline import Visuelle2Arrays
+from visuelle2_tpu_torch.utils import tracing
 
 Batch = Dict[str, torch.Tensor]
 
@@ -231,11 +232,16 @@ class BatchLoader:
 
     def iter_from(self, skip_blocks: int) -> Iterator[Batch]:
         """The epoch from batch ``skip_blocks`` on: the skipped batches are
-        never assembled (a mid-epoch resume, ``train/loop.py``)."""
+        never assembled (a mid-epoch resume, ``train/loop.py``).  Assembling
+        each batch (and, with the engine, starting the next one's gather) is
+        a host span ``loader.batch`` (``utils/tracing.py``), closed before
+        the batch is yielded."""
         blocks = self._epoch_index_blocks()[skip_blocks:]
         if self._engine is None or not blocks:
             for idx in blocks:
-                yield self._to_tensors(self._gather_numpy(idx))
+                with tracing.span("loader.batch"):
+                    batch = self._to_tensors(self._gather_numpy(idx))
+                yield batch
             return
         blocks = [self._local_rows(idx) for idx in blocks]
         # Double-buffered: the engine gathers batch t + 1's images while
@@ -246,12 +252,13 @@ class BatchLoader:
             # any gather in flight, since C++ workers write into its buffer.
             pending = self._submit(blocks[0])
             for nxt in blocks[1:] + [None]:
-                idx, images, handle = pending
-                pending = None
-                self._engine.wait(handle)
-                batch = self._to_tensors(self._gather_rows(idx, self.local_batch_size))
-                batch["images"] = images
-                pending = self._submit(nxt) if nxt is not None else None
+                with tracing.span("loader.batch"):
+                    idx, images, handle = pending
+                    pending = None
+                    self._engine.wait(handle)
+                    batch = self._to_tensors(self._gather_rows(idx, self.local_batch_size))
+                    batch["images"] = images
+                    pending = self._submit(nxt) if nxt is not None else None
                 yield batch
         finally:
             # An abandoned iterator (``next(iter(loader))``) still lets the

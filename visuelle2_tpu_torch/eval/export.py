@@ -4,7 +4,10 @@ Counterpart of ``visuelle2_tpu/eval/export.py``.  ``make_forecaster(model,
 example_batch)`` returns ``(fn, header)``: the header has the JAX artifact
 header's shape (sorted ``keys``, ``shapes``, ``dtypes``), and ``fn`` takes a
 numpy batch dict of exactly those shapes and dtypes, runs the model on its
-device under ``torch.inference_mode()`` and returns numpy forecasts.
+device under ``torch.inference_mode()`` and returns numpy forecasts.  A call
+records three host spans (``utils/tracing.py``): ``forecast.upload`` (the
+host-to-device copies), ``forecast.forward`` (issuing the forward) and
+``forecast.download`` (waiting for the result and copying it back).
 
 ``export_forecaster`` writes a model built by ``models.build`` into one
 file, and ``load_forecaster`` serves that file with no checkpoint and no
@@ -71,6 +74,7 @@ from visuelle2_tpu_torch.models.pretrained import (
 from visuelle2_tpu_torch.models.quantized_resnet import backbone_paths, quantized_model
 from visuelle2_tpu_torch.models.registry import build
 from visuelle2_tpu_torch.parallel.distributed import is_main_process
+from visuelle2_tpu_torch.utils import tracing
 
 MAGIC = b"V2TORCHART01"
 JAX_MAGIC = b"V2TPUEXPORT1"  # the JAX package's StableHLO artifact
@@ -104,10 +108,13 @@ def _serving_fn(model: nn.Module, header: dict, device: torch.device):
                 raise ValueError(f"batch['{k}'] dtype {a.dtype} != exported "
                                  f"{header['dtypes'][k]}")
         with torch.inference_mode():
-            tensors = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
-                       for k in keys}
-            out, _aux = model(tensors)
-            return out.float().cpu().numpy()
+            with tracing.span("forecast.upload"):
+                tensors = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
+                           for k in keys}
+            with tracing.span("forecast.forward"):
+                out, _aux = model(tensors)
+            with tracing.span("forecast.download"):
+                return out.float().cpu().numpy()
 
     forecast_fn.model = model  # the served module, for inspection
     return forecast_fn

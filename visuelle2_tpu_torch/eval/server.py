@@ -1,7 +1,8 @@
 """Minimal HTTP inference server — stdlib and numpy only, counterpart of
 ``visuelle2_tpu/eval/server.py`` (``MicroBatcher``, ``make_server``,
 ``drain_and_close``, ``serve_forever``).  The code is framework-free, so it
-is the JAX package's verbatim; ``forecast_fn`` and ``header`` come from
+is the JAX package's verbatim but for the batcher's spans and counters
+(``utils/tracing.py``); ``forecast_fn`` and ``header`` come from
 ``visuelle2_tpu_torch.eval.export.make_forecaster`` or ``load_forecaster``.
 
 Protocol (npz in / npz out):
@@ -34,13 +35,16 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from visuelle2_tpu_torch.utils import tracing
+
 
 class _Pending:
-    __slots__ = ("arrays", "rows", "event", "result", "error")
+    __slots__ = ("arrays", "rows", "event", "result", "error", "t_queued")
 
     def __init__(self, arrays, rows):
         self.arrays = arrays
         self.rows = rows
+        self.t_queued = tracing.now()
         self.event = threading.Event()
         self.result = None
         self.error = None
@@ -112,6 +116,12 @@ class MicroBatcher:
     ``forecast_fn`` is only ever called from the single worker thread, so the
     compiled call needs no lock.  ``submit`` blocks the calling (handler)
     thread until its slice of a dispatch is ready.
+
+    Spans (``utils/tracing.py``): ``batcher.queue`` a request, from
+    ``submit`` until the worker takes it, tagged with the ``call`` id of
+    the ``batcher.call`` span that serves it; ``batcher.pack`` (concatenate
+    and pad) and ``batcher.call`` (``forecast_fn``) a dispatch; counters
+    ``batcher.rows`` and ``batcher.padded_rows``.
     """
 
     def __init__(self, forecast_fn, keys, shapes, dtypes=None):
@@ -162,20 +172,26 @@ class MicroBatcher:
             rows += req.rows
         return take, rows
 
-    def _dispatch(self, take):
-        """One padded device call serving every request in ``take``."""
+    def _dispatch(self, take, call_id=None):
+        """One padded device call serving every request in ``take``;
+        ``call_id`` the id its ``batcher.call`` span takes."""
         combined = {}
-        for k in self._keys:
-            parts = [np.asarray(r.arrays[k]) for r in take]
-            a = parts[0] if len(parts) == 1 else np.concatenate(parts)
-            want_rows = self._shapes[k][0]
-            if a.shape[0] < want_rows:
-                pad = [(0, want_rows - a.shape[0])] + \
-                      [(0, 0)] * (a.ndim - 1)
-                a = np.pad(a, pad)
-            combined[k] = a
-        out = np.asarray(self._fn(combined))
+        with tracing.span("batcher.pack"):
+            for k in self._keys:
+                parts = [np.asarray(r.arrays[k]) for r in take]
+                a = parts[0] if len(parts) == 1 else np.concatenate(parts)
+                want_rows = self._shapes[k][0]
+                if a.shape[0] < want_rows:
+                    pad = [(0, want_rows - a.shape[0])] + \
+                          [(0, 0)] * (a.ndim - 1)
+                    a = np.pad(a, pad)
+                combined[k] = a
+        with tracing.span("batcher.call", call_id):
+            out = np.asarray(self._fn(combined))
         self.dispatches += 1
+        rows = sum(r.rows for r in take)
+        tracing.count("batcher.rows", rows)
+        tracing.count("batcher.padded_rows", self._capacity - rows)
         off = 0
         for r in take:
             r.result = _slice_samples(out, self._capacity, off, r.rows)
@@ -189,8 +205,12 @@ class MicroBatcher:
                 if self._closed and not self._queue:
                     return
                 take, rows = self._take()
+                t_taken = tracing.now()
+            call_id = tracing.new_id()
+            for r in take:
+                tracing.add("batcher.queue", r.t_queued, t_taken, call=call_id)
             try:
-                self._dispatch(take)
+                self._dispatch(take, call_id)
             except Exception as first:
                 if len(take) == 1:
                     # A singleton that failed would fail identically again:

@@ -38,6 +38,7 @@ from visuelle2_tpu_torch.models.encoders import (
 from visuelle2_tpu_torch.ops import dropout
 from visuelle2_tpu_torch.ops.attention import AdditiveAttention, MultiHeadAttention
 from visuelle2_tpu_torch.ops.gru import GRU, GRUCellModule
+from visuelle2_tpu_torch.utils import tracing
 
 TREND_LEN = 52  # weeks of Google-trend history per product
 TREND_ATTENTION_DROPOUT = 0.1  # the trend self-attention's probabilities
@@ -143,17 +144,19 @@ class _DecodeCell(nn.Module):
 def _decode(cell: _DecodeCell, hidden, dec_in, statics, out_len: int, teacher=None):
     """``out_len`` steps -> (preds [N, T], per-step α dicts).  Each step is
     fed the previous prediction, or with ``teacher = (inputs [N, T], coins
-    [T] bool)`` ``inputs[:, t]`` after a step whose coin is true."""
+    [T] bool)`` ``inputs[:, t]`` after a step whose coin is true.  Each step
+    is a host span ``decode.step`` (``utils/tracing.py``)."""
     preds, alphas = [], []
     for t in range(out_len):
-        hidden, pred, step_alphas = cell(hidden, dec_in, statics)
-        preds.append(pred[:, 0])
-        alphas.append(step_alphas)
-        if teacher is None:
-            dec_in = pred
-        else:
-            inputs, coins = teacher
-            dec_in = torch.where(coins[t], inputs[:, t, None], pred)
+        with tracing.span("decode.step"):
+            hidden, pred, step_alphas = cell(hidden, dec_in, statics)
+            preds.append(pred[:, 0])
+            alphas.append(step_alphas)
+            if teacher is None:
+                dec_in = pred
+            else:
+                inputs, coins = teacher
+                dec_in = torch.where(coins[t], inputs[:, t, None], pred)
     return torch.stack(preds, dim=1), alphas
 
 

@@ -16,6 +16,11 @@
   epoch loss, early stopping on ``val_wWAPE``, the per-epoch ``lr``, and a
   ``torch.profiler`` trace of the second step behind ``trace_dir``.
 
+Both step functions record host spans (``utils/tracing.py``): ``train.step``
+around the step, and inside it ``train.upload`` (the batch to the device),
+``train.forward`` (forward and loss), ``train.backward`` (the gradients
+zeroed, ``backward``) a microbatch and ``train.optimizer`` (the update).
+
 A ``TrainState`` holds the model (parameters and BatchNorm statistics), the
 optimizer and the global step; the step functions update it in place and
 return it, as the JAX ones return a new one.  The parity runs turn dropout
@@ -87,6 +92,7 @@ from visuelle2_tpu_torch.parallel import collectives
 from visuelle2_tpu_torch.parallel import mesh as mesh_lib
 from visuelle2_tpu_torch.parallel import sharding
 from visuelle2_tpu_torch.train import optim as optim_lib
+from visuelle2_tpu_torch.utils import tracing
 
 SUM_KEYS = ("abs_err", "abs_gt", "count", "rows")  # eval_metrics' partial sums
 DROPOUT_SEED_OFFSET = 1000  # the JAX fit's rng = key(seed + 1000)
@@ -362,13 +368,33 @@ class Trainer:
         statistics, dropout masks and dedup gather (a no-op at one rank)."""
         return collectives.data_parallel(self.mesh)
 
+    def _upload(self, batch):
+        with tracing.span("train.upload"):
+            return to_device(batch, self.device)
+
     def _train_loss(self, batch, generator):
-        model = self.model
-        if not model.training:
-            model.train()
-        forecast, _ = model(batch, generator=generator)
-        target, pred = target_and_pred(batch, forecast)
-        return mse_loss(target, pred, expand_mask(batch, target), group=self._group)
+        with tracing.span("train.forward"):
+            model = self.model
+            if not model.training:
+                model.train()
+            forecast, _ = model(batch, generator=generator)
+            target, pred = target_and_pred(batch, forecast)
+            return mse_loss(target, pred, expand_mask(batch, target), group=self._group)
+
+    @staticmethod
+    def _backward(loss, optimizer=None):
+        """``loss.backward()``, the gradients zeroed first when given the
+        ``optimizer``."""
+        with tracing.span("train.backward"):
+            if optimizer is not None:
+                optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+
+    @staticmethod
+    def _update(state: TrainState):
+        with tracing.span("train.optimizer"):
+            state.optimizer.step()
+        state.step += 1
 
     def _reduce_gradients(self, loss):
         """Over a process group: one all-reduce over the data group sums
@@ -422,38 +448,37 @@ class Trainer:
         """One update from ``batch``; returns ``(state, {"loss": tensor})``.
         Data parallel: ``batch`` is this rank's rows, the loss the global
         batch's."""
-        batch = to_device(batch, self.device)
-        generator = step_generator(self.config.seed + DROPOUT_SEED_OFFSET, state.step,
-                                   self.device)
-        with self._parallel():
-            loss = self._train_loss(batch, generator)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        if self.distributed:
-            loss = self._reduce_gradients(loss)
-        state.optimizer.step()
-        state.step += 1
+        with tracing.span("train.step"):
+            batch = self._upload(batch)
+            generator = step_generator(self.config.seed + DROPOUT_SEED_OFFSET, state.step,
+                                       self.device)
+            with self._parallel():
+                loss = self._train_loss(batch, generator)
+                self._backward(loss, state.optimizer)
+            if self.distributed:
+                loss = self._reduce_gradients(loss)
+            self._update(state)
         return state, {"loss": loss.detach()}
 
     def accum_train_step(self, state: TrainState, batches):
         """One update from a list of microbatches: their gradients at the
         same parameters, summed in order (and over the ranks) and divided by
         their number."""
-        state.optimizer.zero_grad(set_to_none=True)
-        loss_sum = 0.0
-        with self._parallel():
-            for i, batch in enumerate(batches):
-                generator = step_generator(self.config.seed + DROPOUT_SEED_OFFSET,
-                                           state.step, self.device, micro=i)
-                loss = self._train_loss(to_device(batch, self.device), generator)
-                loss.backward()
-                loss_sum = loss_sum + loss.detach()
-        if self.distributed:
-            loss_sum = self._reduce_gradients(loss_sum)
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        torch._foreach_div_(grads, float(len(batches)))
-        state.optimizer.step()
-        state.step += 1
+        with tracing.span("train.step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss_sum = 0.0
+            with self._parallel():
+                for i, batch in enumerate(batches):
+                    generator = step_generator(self.config.seed + DROPOUT_SEED_OFFSET,
+                                               state.step, self.device, micro=i)
+                    loss = self._train_loss(self._upload(batch), generator)
+                    self._backward(loss)
+                    loss_sum = loss_sum + loss.detach()
+            if self.distributed:
+                loss_sum = self._reduce_gradients(loss_sum)
+            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+            torch._foreach_div_(grads, float(len(batches)))
+            self._update(state)
         return state, {"loss": loss_sum / len(batches)}
 
     def _dispatch_step(self, state, item):
@@ -606,9 +631,7 @@ class Trainer:
                 if want_trace and epoch == start_epoch and (
                         len(losses) == 1 or steps_per_epoch == 1):
                     # The run's second step (its first when an epoch has one).
-                    from visuelle2_tpu_torch.utils.tracing import trace
-
-                    with trace(self.config.trace_dir):
+                    with tracing.trace(self.config.trace_dir):
                         state, m = self._dispatch_step(state, batch)
                     want_trace = False
                 else:
